@@ -1,0 +1,128 @@
+"""Two-stage quantizer primitives (paper §III), PyTorch port.
+
+``Q_λs[T_α(g)]``: truncation to [-α, α] (Eq. 3), then stochastic rounding
+onto a codebook L = {l_0 < ... < l_s} (Eq. 4).  ``s = 2^b - 1`` intervals,
+codes in [0, s].
+
+Wire words are int32 tensors holding the uint32 bit patterns of
+``repro.core.quantizers.pack_codes``: the bit work runs in int64, and the
+final cast keeps the low 32 bits.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_EPS = 1e-12
+
+
+def num_levels(bits: int) -> int:
+    """s = 2^b - 1 intervals -> s+1 codebook points."""
+    return 2**bits - 1
+
+
+def truncate(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """T_alpha[g] (Eq. 3): clamp magnitudes to alpha, keeping sign."""
+    return torch.minimum(torch.maximum(g, -alpha), alpha)
+
+
+def linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:
+    """``jnp.linspace`` in float32: ``start·(1 − t) + stop·t`` with
+    ``t = iota/(num−1)``, then the exact ``stop`` appended.  (torch's own
+    linspace uses a two-sided formula and rounds differently.)"""
+    start = torch.as_tensor(start, dtype=torch.float32)
+    stop = torch.as_tensor(stop, dtype=torch.float32, device=start.device)
+    div = num - 1
+    t = torch.arange(div, dtype=torch.float32, device=start.device) / torch.tensor(
+        float(div), device=start.device)
+    return torch.cat([start * (1 - t) + stop * t, stop.reshape(1)])
+
+
+def uniform_levels(alpha: torch.Tensor, bits: int) -> torch.Tensor:
+    """Evenly spaced codebook over [-alpha, alpha] (QSGD / TQSGD)."""
+    return linspace(-alpha, alpha, num_levels(bits) + 1)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp``: piecewise-linear, clamped to ``fp[0]``/``fp[-1]``
+    outside ``[xp[0], xp[-1]]``."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=xp.device)
+    i = torch.clamp(torch.searchsorted(xp, x.reshape(-1), right=True), 1, xp.shape[0] - 1)
+    i = i.reshape(x.shape)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = torch.abs(dx) <= 1.4210855e-14          # np.spacing(float32 eps)
+    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def levels_from_density(edges: torch.Tensor, lam: torch.Tensor, bits: int) -> torch.Tensor:
+    """Codebook from a piecewise-constant density λ on |g| bins (Eq. 18).
+
+    Interval boundaries sit at equal increments of the cumulative density,
+    mirrored to [-alpha, alpha]; the endpoints are pinned and the levels
+    made strictly increasing.  Returns (s+1,) float32.
+    """
+    s = num_levels(bits)
+    alpha = edges[-1]
+    full_edges = torch.cat([-edges.flip(0), edges[1:]])
+    full_lam = torch.cat([lam.flip(0), lam])
+    widths = full_edges[1:] - full_edges[:-1]
+    cum = torch.cat([torch.zeros(1, dtype=lam.dtype, device=lam.device),
+                     torch.cumsum(full_lam * widths, 0)])
+    total = torch.clamp_min(cum[-1], _EPS)
+    targets = linspace(torch.zeros((), device=lam.device), total, s + 1)
+    levels = interp(targets, cum, full_edges)
+    levels = torch.cat([-alpha.reshape(1), levels[1:-1], alpha.reshape(1)])
+    min_step = 2.0 * alpha * 1e-6 / (s + 1)
+    ramp = min_step * torch.arange(s + 1, dtype=torch.float32, device=lam.device)
+    levels = torch.cummax(levels + ramp, 0).values - ramp
+    return levels.to(torch.float32)
+
+
+class QuantMeta(NamedTuple):
+    """Per-tensor quantization metadata shipped alongside the codes."""
+
+    levels: torch.Tensor  # (s+1,) float32 codebook
+    alpha: torch.Tensor   # scalar float32 truncation threshold (levels[-1])
+
+
+def packed_size(n: int, bits: int) -> int:
+    """Number of uint32 words for n codes at ``bits`` bits each."""
+    return (n + 31) // 32 * bits
+
+
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor with the same bits."""
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack flat codes (values < 2^bits) into int32 wire words.
+
+    Layout: group g, bit-plane j -> word[g·bits + j] holds bit j of codes
+    [32g .. 32g+31], lane l in bit l.  Shape: (ceil(n/32)·bits,).
+    """
+    n = codes.shape[0]
+    groups = (n + 31) // 32
+    padded = torch.zeros(groups * 32, dtype=torch.int64, device=codes.device)
+    padded[:n] = codes.to(torch.int64)
+    padded = padded.reshape(groups, 32, 1)
+    lane = torch.arange(32, dtype=torch.int64, device=codes.device).reshape(1, 32, 1)
+    planes = (padded >> torch.arange(bits, dtype=torch.int64, device=codes.device)) & 1
+    words = torch.sum(planes << lane, dim=1)                          # (groups, bits)
+    return _to_int32(words.reshape(-1))
+
+
+def unpack_codes(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`; returns (n,) uint8 codes."""
+    groups = words.shape[0] // bits
+    w = words.to(torch.int64).reshape(groups, 1, bits)
+    lane = torch.arange(32, dtype=torch.int64, device=words.device).reshape(1, 32, 1)
+    bitvals = (w >> lane) & 1                                          # (groups, 32, bits)
+    shifts = torch.arange(bits, dtype=torch.int64, device=words.device)
+    codes = torch.sum(bitvals << shifts, dim=2)
+    return codes.reshape(-1)[:n].to(torch.uint8)

@@ -1,0 +1,64 @@
+"""Per-step gradient-sync configuration — the fields of
+``repro.dist.train_step.TrainStepConfig`` that the bucketed reference sync
+reads.  The mesh train step itself is still to port (ROADMAP Queue 1
+item 7)."""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.compressors import CompressorConfig
+
+SYNC_MODES = ("dsgd", "two_phase", "hierarchical", "faithful")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    """``bucket_mb > 0`` coalesces the gradient leaves into ~``bucket_mb``-MB
+    fp32 buckets with one codebook each; ``error_feedback`` carries a
+    bucket-resident (n_clients, bucket_elems) EF residual from step to
+    step; ``bits_plan`` gives each bucket its own width; buckets of at most
+    ``fp16_threshold`` elements would ship raw fp16 (0 = off)."""
+
+    sync: str = "dsgd"
+    compressor: CompressorConfig = dataclasses.field(default_factory=CompressorConfig)
+    bucket_mb: float = 4.0
+    error_feedback: bool = False
+    bits_plan: tuple[int, ...] | None = None
+    metrics_compression: bool = False
+    fp16_threshold: int = 0
+
+    def __post_init__(self):
+        if self.sync not in SYNC_MODES:
+            raise ValueError(f"unknown sync mode {self.sync!r}; expected one of {SYNC_MODES}")
+        if self.bucket_mb < 0:
+            raise ValueError("bucket_mb must be >= 0 (0 selects the per-leaf codec)")
+        if self.error_feedback:
+            if self.sync == "dsgd" or self.compressor.method == "dsgd":
+                raise ValueError("error_feedback requires a compressed sync mode/method")
+            if self.bucket_mb <= 0:
+                raise ValueError("error_feedback requires the bucketed codec (bucket_mb > 0)")
+        if self.metrics_compression and self.bucket_mb <= 0:
+            raise ValueError("metrics_compression requires the bucketed codec (bucket_mb > 0)")
+        if self.fp16_threshold < 0:
+            raise ValueError("fp16_threshold must be >= 0 (0 disables the tier)")
+        if self.fp16_threshold > 0 and self.bucket_mb <= 0:
+            raise ValueError("fp16_threshold targets the bucketed codec (bucket_mb > 0)")
+        if self.bits_plan is not None:
+            if self.bucket_mb <= 0:
+                raise ValueError("bits_plan targets the bucketed codec (bucket_mb > 0)")
+            norm = []
+            for b in self.bits_plan:
+                if isinstance(b, tuple | list):
+                    from repro_torch.core.codecs import bucket_cfg_entry
+
+                    bucket_cfg_entry(self.compressor, b)
+                    norm.append((str(b[0]), int(b[1])))
+                else:
+                    if not (1 <= int(b) <= 8):
+                        raise ValueError("bits_plan entries must be in [1, 8]")
+                    norm.append(int(b))
+            object.__setattr__(self, "bits_plan", tuple(norm))
+
+    @property
+    def bucket_elements(self) -> int:
+        return int(self.bucket_mb * (1 << 20) / 4)

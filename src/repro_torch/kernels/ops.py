@@ -1,0 +1,118 @@
+"""Public wrappers around the port's kernels: layout, RNG draw and dispatch.
+
+The counterpart of ``repro.kernels.ops``.  Each wrapper pads a flat bucket
+to the (rows, 128) layout, draws the stochastic-rounding uniforms on that
+padded tile (element i's counters follow from i and the tile's size, exactly
+as in the JAX package), and sends the operands to the kernel when they lie
+on the card or to the plain version in ``kernels.ref`` when they lie on the
+CPU.  There is no switch between the two: the device decides, and a card
+tensor either launches its kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.quantizers import packed_size
+
+from . import decode as _d
+from . import encode_fused as _e
+from . import ref
+from . import stats as _s
+
+LANES = _s.LANES
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for tensors on {x.device}")
+
+
+def _to_2d(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    n = x.numel()
+    rows = -(-n // LANES)
+    x2 = torch.zeros(rows * LANES, dtype=torch.float32, device=x.device)
+    x2[:n] = x.reshape(-1)
+    return x2.reshape(rows, LANES), n
+
+
+class BucketStats(NamedTuple):
+    """One-pass statistics of a flat gradient bucket."""
+
+    counts: torch.Tensor    # (NUM_BINS,) log2-spaced |g| histogram counts
+    log_sums: torch.Tensor  # (NUM_BINS,) per-bin sums of ln|g|
+    g_max: torch.Tensor     # scalar max |g|
+    g_sum: torch.Tensor     # scalar sum g
+    g_sumsq: torch.Tensor   # scalar sum g²
+
+
+def _stats(out: torch.Tensor) -> BucketStats:
+    return BucketStats(counts=out[0], log_sums=out[1], g_max=out[2, 0],
+                       g_sum=out[3, 0], g_sumsq=out[4, 0])
+
+
+def bucket_stats(g: torch.Tensor) -> BucketStats:
+    """Histogram + Hill-sum + max/moments pass over a flat bucket (K10)."""
+    g2, n = _to_2d(g)
+    out = _s.bucket_stats_2d(g2, n) if _on_card(g2) else ref.bucket_stats(g2, n)
+    return _stats(out)
+
+
+def ef_correct_stats(g: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor, BucketStats]:
+    """One pass: ``c = g + e`` plus the statistics of c (K1).
+    Returns ``(corrected (n,) fp32, BucketStats)``."""
+    g2, n = _to_2d(g)
+    e2, _ = _to_2d(e)
+    if _on_card(g2):
+        c2, out = _e.ef_correct_stats_2d(g2, e2, n)
+    else:
+        c2, out = ref.ef_correct_stats(g2, e2, n)
+    return c2.reshape(-1)[:n], _stats(out)
+
+
+def codebook_encode_pack_residual(g: torch.Tensor, levels: torch.Tensor, bits: int,
+                                  key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stochastic codebook encode + bit-pack + EF residual (K2).
+
+    Returns ``(words, residual)``: the ``packed_size(n, bits)`` int32 wire
+    words (the bits of ``pack_codes``) and the exact ``g − levels[code]``.
+    """
+    g2, n = _to_2d(g)
+    rand = prng.uniform(key, g2.shape, device=g2.device)
+    levels = levels.to(torch.float32).contiguous()
+    if _on_card(g2):
+        words, resid = _e.codebook_encode_pack_resid_2d(g2, rand, levels, n, bits)
+    else:
+        words, resid = ref.codebook_encode_pack_residual(g2, rand, levels, n, bits)
+    return words.reshape(-1)[:packed_size(n, bits)], resid.reshape(-1)[:n]
+
+
+def _to_words3(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """(peers, packed_size(n, bits)) int32 -> (peers, rows, 4·bits), zero-padded."""
+    p, w = words.shape
+    if w != packed_size(n, bits):
+        raise ValueError(f"wire has {w} words per peer; {n} elements at {bits} bits need "
+                         f"{packed_size(n, bits)}")
+    rows = -(-n // LANES)
+    wc = _d.words_per_row(bits)
+    out = torch.zeros((p, rows * wc), dtype=torch.int32, device=words.device)
+    out[:, :w] = words
+    return out.reshape(p, rows, wc)
+
+
+def codebook_decode_reduce(words: torch.Tensor, levels: torch.Tensor, n: int,
+                           bits: int) -> torch.Tensor:
+    """Unpack + codebook dequant + peer mean (K4); ``words``: (peers,
+    packed_size(n, bits)) int32, ``levels``: (peers, s+1).  Returns (n,)."""
+    words3 = _to_words3(words, n, bits)
+    levels = levels.to(torch.float32).contiguous()
+    if _on_card(words3):
+        out = _d.codebook_decode_reduce_3d(words3, levels, bits)
+    else:
+        out = ref.codebook_decode_reduce(words3, levels, bits)
+    return out.reshape(-1)[:n]
