@@ -7,16 +7,22 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
 1. card: print ``nvidia-smi``'s name and power limit, require CUDA;
 2. build: compile every kernel of the main path from ``csrc/`` and print
    the ``-Xptxas -v`` register and shared-memory report;
-3. kernel parity: each kernel against its plain PyTorch version on the card
-   on identical inputs, at the slice's bucket (206,922 elements), a full
-   4 MB bucket (1,048,576) and a ragged size, 8 peers, 1, 3 and 8 bits;
+3. kernel parity: each of the ten kernels against its plain PyTorch version
+   on the card on identical inputs, at smallnet's bucket (206,922
+   elements), a full 4 MB bucket (1,048,576) and a ragged size, 8 peers,
+   1, 3 and 8 bits, and at 3 bits at every shape and peer count the main
+   path gives them (the padded buckets and chunks of two_phase (8,) and of
+   a (2, 4) pod, and the 2-peer cross-pod stage);
 4. main path: the paper's 8-client smallnet training through
-   ``repro_torch.train.train_synced`` (faithful tnqsgd at 3 bits, EF off and
-   on, the EF-on run twice to show it repeats bit for bit), held to the JAX
-   package's golden windows, with every kernel's launch count read around
-   each run;
+   ``repro_torch.train.train_synced`` at 3 bits: faithful tnqsgd (EF off and
+   on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
+   faithful tqsgd and qsgd, two_phase tqsgd; each EF-on run twice to show
+   it repeats bit for bit.  Each run is held to the JAX package's golden
+   window (or, where it pins none, to convergence), and every kernel's
+   launch count, read around each run, to the count its sync mode implies;
 5. times: every kernel and its plain version at the 4 MB x 8-peer shape,
-   beside its byte bound, and the synced step's wall time.
+   beside its byte bound, the phase-2 kernels at their chunk shape, and
+   one synced step's wall time per sync mode.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -103,9 +109,18 @@ def main() -> int:
     def to2d(x: torch.Tensor) -> torch.Tensor:
         return ops._to_2d(x)[0]
 
-    def plan_levels(g2: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    def plan(g2: torch.Tensor, n: int, bits: int, method: str):
         st = ref.bucket_stats(g2, n)
-        return plan_from_stats(CompressorConfig(bits=bits), st[0], st[1], st[2, 0]).levels
+        return plan_from_stats(CompressorConfig(method=method, bits=bits), st[0], st[1], st[2, 0])
+
+    def plan_levels(g2: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+        return plan(g2, n, bits, "tnqsgd").levels
+
+    def agree(name: str, got, want, what: str) -> None:
+        """Bitwise agreement of a kernel's output with its plain version."""
+        check(got.shape == want.shape and torch.equal(got, want), f"{name} {what} differs")
+        if got.dtype == torch.float32:
+            max_err[name] = max(max_err[name], float(torch.abs(got - want).max()))
 
     def stats_err(got, want, x2, n, what):
         check(torch.equal(got[0], want[0]), f"{what}: histogram counts differ")
@@ -119,13 +134,26 @@ def main() -> int:
         return float(torch.abs(got - want).max())
 
     max_err = {k.__name__: 0.0 for k in kernels.KERNELS}
-    cases = [(SLICE_N, 3), (FULL_N, 3), (FULL_N, 8), (RAGGED_N, 1), (RAGGED_N, 8)]
+    # (elements, bits, peers): the convention shapes, then the main path's
+    # own at 3 bits.  two_phase (8,) encodes smallnet's bucket padded for 8
+    # chunks and decodes, re-encodes and row-decodes its chunks over 8
+    # peers; a (2, 4) pod does the same padded for 4 chunks over 4 peers;
+    # the cross-pod stage encodes and decodes the bucket over 2 peers.
+    from repro_torch.core.codecs import get_codec
+    chunk = get_codec("tnqsgd").chunk_elems
+    cfg3 = CompressorConfig(method="tnqsgd", bits=3)
+    cases = [(SLICE_N, 3, PEERS), (FULL_N, 3, PEERS), (FULL_N, 8, PEERS), (RAGGED_N, 1, PEERS),
+             (RAGGED_N, 8, PEERS)]
+    for pod in (PEERS, PEERS // 2):
+        m = chunk(cfg3, SLICE_N, pod)
+        cases += [(pod * m, 3, pod), (m, 3, pod)]
+    cases.append((SLICE_N, 3, 2))
     full_inputs = None
-    for n, bits in cases:
-        g = [to2d(heavy(n, 1e-3)) for _ in range(PEERS)]
-        e = [to2d(heavy(n, 1e-4)) for _ in range(PEERS)]
-        words, levels = [], []
-        for p in range(PEERS):
+    for n, bits, peers in cases:
+        g = [to2d(heavy(n, 1e-3)) for _ in range(peers)]
+        e = [to2d(heavy(n, 1e-4)) for _ in range(peers)]
+        words, levels, uwords, alphas, cwords = [], [], [], [], []
+        for p in range(peers):
             s10 = kstats.bucket_stats_2d(g[p], n)
             c, s1 = kenc.ef_correct_stats_2d(g[p], e[p], n)
             # a second launch on the same input must agree bit for bit
@@ -147,54 +175,118 @@ def main() -> int:
             check(torch.equal(r, r_ref), f"K2 residual differs at n={n} bits={bits}")
             words.append(w)
             levels.append(lv)
+            at = f"n={n} bits={bits}"
+            wc = kenc.codebook_encode_pack_2d(c, rand, lv, n, bits)
+            agree("codebook_encode_pack_2d", wc, ref.codebook_encode_pack(c, rand, lv, n, bits),
+                  f"words at {at}")
+            check(torch.equal(wc, w), f"K6 words differ from K2's at {at}")
+            cwords.append(wc)
+            alpha = plan(c, n, bits, "tqsgd").alpha.reshape(1).contiguous()
+            uw, ur = kenc.uniform_encode_pack_resid_2d(c, rand, alpha, n, bits)
+            uw_ref, ur_ref = ref.uniform_encode_pack_residual(c, rand, alpha, n, bits)
+            agree("uniform_encode_pack_resid_2d", uw, uw_ref, f"words at {at}")
+            agree("uniform_encode_pack_resid_2d", ur, ur_ref, f"residual at {at}")
+            agree("uniform_encode_pack_2d", kenc.uniform_encode_pack_2d(c, rand, alpha, n, bits),
+                  uw_ref, f"words at {at}")
+            uwords.append(uw)
+            alphas.append(alpha)
         words3 = torch.stack(words).contiguous()
         levels2 = torch.stack(levels).contiguous()
         mean = kdec.codebook_decode_reduce_3d(words3, levels2, bits)
         check(torch.equal(mean, ref.codebook_decode_reduce(words3, levels2, bits)),
               f"K4 mean differs at n={n} bits={bits}")
+        uwords3, alphas1 = torch.stack(uwords).contiguous(), torch.cat(alphas)
+        cwords3 = torch.stack(cwords).contiguous()
+        agree("uniform_decode_reduce_3d", kdec.uniform_decode_reduce_3d(uwords3, alphas1, bits),
+              ref.uniform_decode_reduce(uwords3, alphas1, bits), f"mean at {at}")
+        agree("uniform_decode_rows_3d", kdec.uniform_decode_rows_3d(uwords3, alphas1, bits),
+              ref.uniform_decode_rows(uwords3, alphas1, bits), f"rows at {at}")
+        agree("codebook_decode_rows_3d", kdec.codebook_decode_rows_3d(cwords3, levels2, bits),
+              ref.codebook_decode_rows(cwords3, levels2, bits), f"rows at {at}")
         torch.cuda.synchronize()
-        print(f"[parity] n={n} bits={bits} peers={PEERS}: K1, K10 counts/max exact, sums within "
-              f"rtol {STATS_RTOL}, bitwise deterministic; K2 words+residual and K4 mean bitwise")
-        if (n, bits) == (FULL_N, 3):
+        print(f"[parity] n={n} bits={bits} peers={peers}: K1, K10 counts/max exact, sums within "
+              f"rtol {STATS_RTOL}, bitwise deterministic; K2, K3, K6, K7 words and residuals, "
+              f"K4, K5 means and K8, K9 rows bitwise")
+        if (n, bits, peers) == (FULL_N, 3, PEERS):
             full_inputs = dict(g=g, e=e, c=[to2d(heavy(n, 1e-3)) for _ in range(PEERS)],
-                               levels=levels, words3=words3, levels2=levels2)
+                               levels=levels, words3=words3, levels2=levels2,
+                               alphas=alphas, uwords3=uwords3, alphas1=alphas1)
 
     # -- 4. main path -----------------------------------------------------
     from repro_torch.train import train_synced
 
-    runs = {}
+    steps = 30
+    # label -> (train_synced keywords, window (final loss, tolerance) or None
+    # for convergence alone, launches per synced step).  Per step, for one
+    # bucket and 8 clients: the peers' statistics (K1 with EF, else K10) and
+    # full-bucket encodes (K2|K3, uniform methods in the second slot); the
+    # faithful decode K4|K5; two_phase decodes 8 chunks (K4|K5), plans them
+    # (K10), re-encodes them (K6|K7) and decodes the rows once (K8|K9);
+    # hierarchical (2, 4) runs that in two pods of 4 (K8|K9 twice), then
+    # plans (K10), encodes (K2|K3) and decodes (K4|K5) the 2 pod means.
+    def expected_launches(stats, enc, dec, enc2=0, rows=0, uniform=False):
+        k_enc, k_dec, k_enc2, k_rows = (
+            ("uniform_encode_pack_resid_2d", "uniform_decode_reduce_3d", "uniform_encode_pack_2d",
+             "uniform_decode_rows_3d") if uniform else
+            ("codebook_encode_pack_resid_2d", "codebook_decode_reduce_3d",
+             "codebook_encode_pack_2d", "codebook_decode_rows_3d"))
+        counts = dict.fromkeys(launches, 0)
+        counts.update({k_enc: enc, k_dec: dec, k_enc2: enc2, k_rows: rows}, **stats)
+        return counts
+
     launches = {k.__name__: 0 for k in kernels.KERNELS}
-    # the EF-on run twice: the loss history must repeat bit for bit
-    for label, ef in (("faithful_ef_off", False), ("faithful_ef_on", True),
-                      ("faithful_ef_on_again", True)):
-        kernels.reset_launch_counts()
-        t0 = time.time()
-        hist = train_synced(sync="faithful", method="tnqsgd", bits=3, error_feedback=ef,
-                            steps=30, n_clients=PEERS, batch=32, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = kernels.launch_counts()
-        if label != "faithful_ef_on_again":
+    ef_off, ef_on = {"bucket_stats_2d": 8}, {"ef_correct_stats_2d": 8}
+    golden = {
+        "faithful_ef_off": (dict(sync="faithful"), (0.0162, 0.05),
+                            expected_launches(ef_off, 8, 1)),
+        "faithful_ef_on": (dict(sync="faithful", error_feedback=True), None,
+                           expected_launches(ef_on, 8, 1)),
+        "two_phase_ef_off": (dict(sync="two_phase"), (0.0037, 0.05),
+                             expected_launches({"bucket_stats_2d": 16}, 8, 8, 8, 1)),
+        "two_phase_ef_on": (dict(sync="two_phase", error_feedback=True), None,
+                            expected_launches({"ef_correct_stats_2d": 8, "bucket_stats_2d": 8},
+                                              8, 8, 8, 1)),
+        "hierarchical_ef_off": (dict(sync="hierarchical", dp_sizes=(2, 4)), (0.0207, 0.05),
+                                expected_launches({"bucket_stats_2d": 18}, 10, 9, 8, 2)),
+        "faithful_tqsgd": (dict(sync="faithful", method="tqsgd"), (0.0179, 0.05),
+                           expected_launches(ef_off, 8, 1, uniform=True)),
+        "faithful_qsgd": (dict(sync="faithful", method="qsgd"), (0.0085, 0.05),
+                          expected_launches(ef_off, 8, 1, uniform=True)),
+        "two_phase_tqsgd": (dict(sync="two_phase", method="tqsgd"), None,
+                            expected_launches({"bucket_stats_2d": 16}, 8, 8, 8, 1, uniform=True)),
+    }
+    runs = {}
+    for label, (kw, window, counts_per_step) in golden.items():
+        # the EF-on runs twice: the loss history must repeat bit for bit
+        for again in ((False, True) if kw.get("error_feedback") else (False,)):
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            hist = train_synced(bits=3, steps=steps, n_clients=PEERS, batch=32, device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = kernels.launch_counts()
+            name = label + ("_again" if again else "")
+            print(f"[golden] {name}: first {hist[0]:.6f} last {hist[-1]:.6f} "
+                  f"({len(hist)} steps, {wall:.2f} s) launches {json.dumps(counts)}")
+            print(f"[golden] {name} losses {json.dumps(hist)}")
+            check(all(math.isfinite(x) for x in hist), f"{name}: non-finite loss {hist}")
+            want = {k: v * steps for k, v in counts_per_step.items()}
+            check(counts == want, f"{name}: launches {counts}, expected {want}")
+            if again:
+                check(hist == runs[label]["hist"],
+                      f"{label}: loss history differs between two runs of the same seeds")
+                print(f"[golden] {label} repeats bit for bit")
+                continue
             for k, v in counts.items():
                 launches[k] += v
-        runs[label] = dict(hist=hist, counts=counts, wall=wall)
-        check(all(math.isfinite(x) for x in hist), f"{label}: non-finite loss {hist}")
-        print(f"[golden] {label}: first {hist[0]:.6f} last {hist[-1]:.6f} "
-              f"({len(hist)} steps, {wall:.2f} s) launches {json.dumps(counts)}")
-        print(f"[golden] {label} losses {json.dumps(hist)}")
-    off, on = runs["faithful_ef_off"], runs["faithful_ef_on"]
-    check(abs(off["hist"][0] - 6.4895) <= 1e-3, f"EF-off first-step loss {off['hist'][0]}")
-    check(abs(off["hist"][-1] - 0.0162) <= 0.05, f"EF-off final loss {off['hist'][-1]}")
-    check(on["hist"][-1] < on["hist"][0] - 5.0, f"EF-on did not converge: {on['hist']}")
-    check(runs["faithful_ef_on_again"]["hist"] == on["hist"],
-          "EF-on loss history differs between two runs of the same seeds")
-    print("[golden] faithful_ef_on repeats bit for bit")
-    check(off["counts"]["bucket_stats_2d"] > 0 and off["counts"]["ef_correct_stats_2d"] == 0,
-          "EF-off run must go through K10 and not K1")
-    check(on["counts"]["ef_correct_stats_2d"] > 0, "EF-on run must go through K1")
-    for label in runs:
-        for k in ("codebook_encode_pack_resid_2d", "codebook_decode_reduce_3d"):
-            check(runs[label]["counts"][k] > 0, f"{label}: {k} never launched")
+            runs[label] = dict(hist=hist, counts=counts, wall=wall)
+            check(abs(hist[0] - 6.4895) <= 1e-3, f"{label}: first-step loss {hist[0]}")
+            check(hist[-1] < hist[0] - 5.0, f"{label} did not converge: {hist}")
+            if window is not None:
+                check(abs(hist[-1] - window[0]) <= window[1],
+                      f"{label}: final loss {hist[-1]} outside {window[0]} ± {window[1]}")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} never launched on the main path")
 
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:
@@ -262,6 +354,45 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:165"),
     }
+    spec.update({
+        "uniform_encode_pack_resid_2d": dict(
+            fn=kenc.uniform_encode_pack_resid_2d, plain=ref.uniform_encode_pack_residual,
+            calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
+            bytes=2 * 4 * n + 4 + wbytes + 4 * n,
+            source="src/repro_torch/kernels/csrc/encode_fused.cu",
+            replaces="src/repro/kernels/encode_fused.py:196"),
+        "uniform_decode_reduce_3d": dict(
+            fn=kdec.uniform_decode_reduce_3d, plain=ref.uniform_decode_reduce,
+            calls=[(fi["uwords3"].clone(), fi["alphas1"], bits) for _ in range(8)],
+            bytes=PEERS * wbytes + PEERS * 4 + 4 * n,
+            source="src/repro_torch/kernels/csrc/decode.cu",
+            replaces="src/repro/kernels/decode.py:159"),
+        "codebook_encode_pack_2d": dict(
+            fn=kenc.codebook_encode_pack_2d, plain=ref.codebook_encode_pack,
+            calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
+            bytes=2 * 4 * n + 4 * (2**bits) + wbytes,
+            source="src/repro_torch/kernels/csrc/encode_fused.cu",
+            replaces="src/repro/kernels/encode_fused.py:206"),
+        "uniform_encode_pack_2d": dict(
+            fn=kenc.uniform_encode_pack_2d, plain=ref.uniform_encode_pack,
+            calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
+            bytes=2 * 4 * n + 4 + wbytes,
+            source="src/repro_torch/kernels/csrc/encode_fused.cu",
+            replaces="src/repro/kernels/encode_fused.py:187"),
+        "codebook_decode_rows_3d": dict(
+            fn=kdec.codebook_decode_rows_3d, plain=ref.codebook_decode_rows,
+            calls=[(fi["words3"].clone(), fi["levels2"], bits) for _ in range(2)],
+            bytes=PEERS * wbytes + PEERS * 4 * (2**bits) + PEERS * 4 * n,
+            source="src/repro_torch/kernels/csrc/decode.cu",
+            replaces="src/repro/kernels/decode.py:177"),
+        "uniform_decode_rows_3d": dict(
+            fn=kdec.uniform_decode_rows_3d, plain=ref.uniform_decode_rows,
+            calls=[(fi["uwords3"].clone(), fi["alphas1"], bits) for _ in range(2)],
+            bytes=PEERS * wbytes + PEERS * 4 + PEERS * 4 * n,
+            source="src/repro_torch/kernels/csrc/decode.cu",
+            replaces="src/repro/kernels/decode.py:171"),
+    })
+    check(set(spec) == set(launches), "every kernel needs a timing spec")
     per_step = {k: max(r["counts"][k] / len(r["hist"]) for r in runs.values()) for k in launches}
     records = []
     for name, sp in spec.items():
@@ -276,27 +407,67 @@ def main() -> int:
         print("[time] " + json.dumps(dict(rec, bytes=sp["bytes"], launches_per_step=per_step[name],
                                           library="none", card=card)))
 
-    # the synced step: 8 peers' smallnet gradients through the faithful sync
-    from repro_torch.core.codecs import get_codec
+    # the phase-2 sites: 8 peers x 131,072-element chunks of one 4 MB bucket
+    # (one chunk per encode, all 8 chunks per rows decode); likely launch-bound
+    cn, crows = n // PEERS, rows // PEERS
+    chunk = [(fi["c"][p][j * crows:(j + 1) * crows], rand[p][j * crows:(j + 1) * crows])
+             for p in range(PEERS) for j in range(PEERS)]
+    cw3 = [fi["words3"][:, j * crows:(j + 1) * crows].contiguous() for j in range(PEERS)]
+    uw3 = [fi["uwords3"][:, j * crows:(j + 1) * crows].contiguous() for j in range(PEERS)]
+    cwb = crows * 4 * bits * 4
+    chunk_spec = {
+        "codebook_encode_pack_2d": (kenc.codebook_encode_pack_2d,
+                                    [(c, r, fi["levels"][0], cn, bits) for c, r in chunk],
+                                    2 * 4 * cn + 4 * (2**bits) + cwb),
+        "uniform_encode_pack_2d": (kenc.uniform_encode_pack_2d,
+                                   [(c, r, fi["alphas"][0], cn, bits) for c, r in chunk],
+                                   2 * 4 * cn + 4 + cwb),
+        "codebook_decode_reduce_3d": (kdec.codebook_decode_reduce_3d,
+                                      [(w, fi["levels2"], bits) for w in cw3],
+                                      PEERS * cwb + PEERS * 4 * (2**bits) + 4 * cn),
+        "uniform_decode_reduce_3d": (kdec.uniform_decode_reduce_3d,
+                                     [(w, fi["alphas1"], bits) for w in uw3],
+                                     PEERS * cwb + PEERS * 4 + 4 * cn),
+        "codebook_decode_rows_3d": (kdec.codebook_decode_rows_3d,
+                                    [(w, fi["levels2"], bits) for w in cw3],
+                                    PEERS * cwb + PEERS * 4 * (2**bits) + PEERS * 4 * cn),
+        "uniform_decode_rows_3d": (kdec.uniform_decode_rows_3d,
+                                   [(w, fi["alphas1"], bits) for w in uw3],
+                                   PEERS * cwb + PEERS * 4 + PEERS * 4 * cn),
+    }
+    for name, (fn, calls, nbytes) in chunk_spec.items():
+        print("[time] " + json.dumps({
+            "chunk_site": name, "elements_per_chunk": cn, "peers": PEERS, "bits": bits,
+            "ms": graph_ms(fn, calls), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "card": card}))
+
+    # the synced step: 8 peers' smallnet gradients through each sync mode
     from repro_torch.dist.reference import reference_sync_state
     from repro_torch.dist.train_step import TrainStepConfig
 
     shapes = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (1568, 128), (10,), (128, 10)]
     leaves = [heavy(PEERS * math.prod(s), 1e-3).reshape(PEERS, *s) for s in shapes]
     key = prng.fold_in(prng.key(0x5EED), 0)
-    for ef_on in (False, True):
-        ts = TrainStepConfig(sync="faithful", error_feedback=ef_on,
-                             compressor=CompressorConfig(method="tnqsgd", bits=3))
+    for sync, dp, method, ef_on in (("faithful", (PEERS,), "tnqsgd", False),
+                                    ("faithful", (PEERS,), "tnqsgd", True),
+                                    ("two_phase", (PEERS,), "tnqsgd", False),
+                                    ("two_phase", (PEERS,), "tnqsgd", True),
+                                    ("hierarchical", (2, PEERS // 2), "tnqsgd", False),
+                                    ("faithful", (PEERS,), "tqsgd", False),
+                                    ("two_phase", (PEERS,), "tqsgd", False)):
+        ts = TrainStepConfig(sync=sync, error_feedback=ef_on,
+                             compressor=CompressorConfig(method=method, bits=3))
         ef = [torch.zeros((PEERS, SLICE_N), device=dev)] if ef_on else None
         walls = []
         for _ in range(6):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            reference_sync_state(ts, leaves, (PEERS,), key, ef=ef)
+            reference_sync_state(ts, leaves, dp, key, ef=ef)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         print("[time] " + json.dumps({"synced_step_ms": statistics.median(walls[1:]),
-                                      "runs_ms": walls[1:], "error_feedback": ef_on,
+                                      "runs_ms": walls[1:], "sync": sync, "dp_sizes": dp,
+                                      "method": method, "error_feedback": ef_on,
                                       "peers": PEERS, "elements": SLICE_N, "card": card}))
 
     # where the synced step's time goes, phase by phase (host clock, synchronized)

@@ -6,9 +6,12 @@ Wire contract: one peer's transmission for an n-element bucket is one 1-D
 int32 vector of ``wire_words(cfg, n)`` words holding uint32 bit patterns —
 ``[packed_size(n, bits) code words][s+1 bitcast float32 levels]``.
 
-Only the codebook quantizers run on the port's kernels so far: the uniform
-methods (qsgd, tqsgd, dsgd) wait for their kernels K3/K5 (ROADMAP Queue 2),
-and the fp16 tier and powersgd for ROADMAP Queue 1 items 4 and 10.
+Codebook methods (nqsgd, tnqsgd) walk the shipped codebook; the uniform
+methods (qsgd, tqsgd) encode from α and decode from ``levels[-1]``, through
+their own kernels.  A bucket also splits into ``n_chunks`` peer chunks for
+the two-phase reduce-scatter (``encode_chunks``): row j of the result is a
+complete wire for chunk j of ``chunk_elems`` elements.  The fp16 tier and
+powersgd wait for ROADMAP Queue 1 items 4 and 10.
 """
 from __future__ import annotations
 
@@ -23,16 +26,26 @@ from repro_torch.kernels import ops
 from .compressors import METHODS, CompressorConfig, plan_from_stats
 from .quantizers import QuantMeta, packed_size
 
-# Methods whose codebook is the uniform linspace: the JAX package encodes and
-# dequantizes them from α alone, with kernels K3/K5.
+# Methods whose codebook is the uniform linspace: the kernels encode and
+# dequantize them from α alone (code·2α/s − α) instead of a table walk.
 _UNIFORM_DECODE = ("qsgd", "tqsgd", "dsgd")
 
 
-def _codebook_only(cfg: CompressorConfig) -> None:
+def _encode(cfg: CompressorConfig, op: str, flat: torch.Tensor, meta: QuantMeta,
+            key: torch.Tensor):
+    """The uniform or codebook flavour of ``ops.<flavour>_<op>``."""
     if cfg.method in _UNIFORM_DECODE:
-        raise NotImplementedError(
-            f"{cfg.method!r} encodes through the uniform kernels K3/K5, not ported yet "
-            "(ROADMAP Queue 2)")
+        return getattr(ops, f"uniform_{op}")(flat, meta.alpha, cfg.bits, key)
+    return getattr(ops, f"codebook_{op}")(flat, meta.levels, cfg.bits, key)
+
+
+def _decode(cfg: CompressorConfig, op: str, words: torch.Tensor, levels: torch.Tensor,
+            n: int) -> torch.Tensor:
+    """Uniform methods dequantize from α alone (``levels[:, -1]``); the
+    rest walk the shipped codebook."""
+    if cfg.method in _UNIFORM_DECODE:
+        return getattr(ops, f"uniform_{op}")(words, levels[:, -1], n, cfg.bits)
+    return getattr(ops, f"codebook_{op}")(words, levels, n, cfg.bits)
 
 
 def _levels_to_wire(levels: torch.Tensor) -> torch.Tensor:
@@ -62,22 +75,49 @@ class QuantizerCodec:
     def state_extra(self, cfg: CompressorConfig, n: int) -> int:
         return 0
 
+    def encode(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
+               key: torch.Tensor) -> torch.Tensor:
+        """Flat (n,) fp32 -> (wire_words,) wire."""
+        words = _encode(cfg, "encode_pack", flat, pln, key)
+        return torch.cat([words, _levels_to_wire(pln.levels)])
+
     def encode_residual(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
                         key: torch.Tensor):
         """Flat (n,) fp32 -> (wire, EF residual ``flat − own``)."""
-        _codebook_only(cfg)
-        words, resid = ops.codebook_encode_pack_residual(flat, pln.levels, cfg.bits, key)
+        words, resid = _encode(cfg, "encode_pack_residual", flat, pln, key)
         return torch.cat([words, _levels_to_wire(pln.levels)]), resid
 
     def _split(self, cfg: CompressorConfig, rows: torch.Tensor, n: int):
         w = packed_size(n, cfg.bits)
-        return rows[:, :w], _levels_from_wire(rows[:, w:w + cfg.s + 1])
+        return rows[:, :w].contiguous(), _levels_from_wire(rows[:, w:w + cfg.s + 1])
 
     def decode_reduce(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
         """(peers, wire_words) gathered rows -> (n,) fp32 peer mean."""
-        _codebook_only(cfg)
-        words, levels = self._split(cfg, rows, n)
-        return ops.codebook_decode_reduce(words.contiguous(), levels, n, cfg.bits)
+        return _decode(cfg, "decode_reduce", *self._split(cfg, rows, n), n)
+
+    def decode_rows(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
+        """(peers, wire_words) rows -> (peers, n) fp32, one row per peer."""
+        return _decode(cfg, "decode_rows", *self._split(cfg, rows, n), n)
+
+    def chunk_elems(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
+        # chunks pad to 32 elements so packed chunk words slice cleanly
+        return (n + (-n) % (n_chunks * 32)) // n_chunks
+
+    def chunk_wire_words(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
+        return packed_size(self.chunk_elems(cfg, n, n_chunks), cfg.bits) + cfg.s + 1
+
+    def encode_chunks(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
+                      key: torch.Tensor, n_chunks: int):
+        """Flat (n,) -> ((n_chunks, chunk_wire_words) rows, (n,) EF residual).
+
+        The bucket is zero-padded to ``n_chunks·chunk_elems`` before the one
+        encode pass, so the uniforms are drawn on the padded tile."""
+        padded = torch.zeros(n_chunks * self.chunk_elems(cfg, flat.numel(), n_chunks),
+                             dtype=flat.dtype, device=flat.device)
+        padded[:flat.numel()] = flat
+        words, resid = _encode(cfg, "encode_pack_residual", padded, pln, key)
+        lv = _levels_to_wire(pln.levels).reshape(1, -1).expand(n_chunks, -1)
+        return torch.cat([words.reshape(n_chunks, -1), lv], dim=1), resid[:flat.numel()]
 
 
 _REGISTRY = {m: QuantizerCodec(m) for m in METHODS}

@@ -21,9 +21,10 @@ def _alpha_fixed_point(tail: PowerLawTail, s: int, q_fn, iters: int) -> torch.Te
     """α ← g_min · [2ρs²/((γ-2)·Q(α))]^{1/(γ-1)}, from Q = 1."""
     gamma, g_min, rho = tail.gamma, tail.g_min, tail.rho
     expo = 1.0 / (gamma - 1.0)
+    num, gm2 = 2.0 * rho * s * s, gamma - 2.0
 
     def base(q):
-        return g_min * torch.pow(2.0 * rho * s * s / ((gamma - 2.0) * torch.clamp_min(q, _EPS)), expo)
+        return g_min * torch.pow(num / (gm2 * torch.clamp_min(q, _EPS)), expo)
 
     alpha = base(torch.ones((), dtype=torch.float32, device=g_min.device))
     for _ in range(iters):

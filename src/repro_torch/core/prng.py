@@ -37,6 +37,8 @@ def threefry2x32(k1, k2, x1, x2):
     tensors of one shape.  Returns the two output words.
     """
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    if isinstance(x1, torch.Tensor):
+        return _threefry_tensors(ks, x1, x2)
     x0 = (x1 + ks[0]) & _MASK
     y = (x2 + ks[1]) & _MASK
     for r in range(5):
@@ -45,6 +47,22 @@ def threefry2x32(k1, k2, x1, x2):
             y = _rotl(y, rot) ^ x0
         x0 = (x0 + ks[(r + 1) % 3]) & _MASK
         y = (y + ks[(r + 2) % 3] + r + 1) & _MASK
+    return x0, y
+
+
+def _threefry_tensors(ks, x1: torch.Tensor, x2: torch.Tensor):
+    """:func:`threefry2x32`'s rounds in place on fresh copies of ``x1`` and
+    ``x2``: one scratch tensor instead of a new one per operation."""
+    x0 = (x1 + ks[0]).bitwise_and_(_MASK)
+    y = (x2 + ks[1]).bitwise_and_(_MASK)
+    t = torch.empty_like(y)
+    for r in range(5):
+        for rot in _ROTATIONS[r % 2]:
+            x0.add_(y).bitwise_and_(_MASK)
+            torch.bitwise_left_shift(y, rot, out=t).bitwise_and_(_MASK)
+            y.bitwise_right_shift_(32 - rot).bitwise_or_(t).bitwise_xor_(x0)
+        x0.add_(ks[(r + 1) % 3]).bitwise_and_(_MASK)
+        y.add_(ks[(r + 2) % 3] + r + 1).bitwise_and_(_MASK)
     return x0, y
 
 

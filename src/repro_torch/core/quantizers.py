@@ -5,8 +5,8 @@ onto a codebook L = {l_0 < ... < l_s} (Eq. 4).  ``s = 2^b - 1`` intervals,
 codes in [0, s].
 
 Wire words are int32 tensors holding the uint32 bit patterns of
-``repro.core.quantizers.pack_codes``: the bit work runs in int64, and the
-final cast keeps the low 32 bits.
+``repro.core.quantizers.pack_codes``: packing sums the lanes in int64 and
+the final cast keeps the low 32 bits; unpacking shifts the int32 words.
 """
 from __future__ import annotations
 
@@ -50,11 +50,12 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     x = torch.as_tensor(x, dtype=torch.float32, device=xp.device)
     i = torch.clamp(torch.searchsorted(xp, x.reshape(-1), right=True), 1, xp.shape[0] - 1)
     i = i.reshape(x.shape)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
+    f0, x0 = fp[i - 1], xp[i - 1]
+    df = fp[i] - f0
+    dx = xp[i] - x0
+    delta = x - x0
     dx0 = torch.abs(dx) <= 1.4210855e-14          # np.spacing(float32 eps)
-    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(dx0, f0, f0 + (delta / torch.where(dx0, 1.0, dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
 
@@ -110,19 +111,18 @@ def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
     groups = (n + 31) // 32
     padded = torch.zeros(groups * 32, dtype=torch.int64, device=codes.device)
     padded[:n] = codes.to(torch.int64)
-    padded = padded.reshape(groups, 32, 1)
-    lane = torch.arange(32, dtype=torch.int64, device=codes.device).reshape(1, 32, 1)
-    planes = (padded >> torch.arange(bits, dtype=torch.int64, device=codes.device)) & 1
-    words = torch.sum(planes << lane, dim=1)                          # (groups, bits)
-    return _to_int32(words.reshape(-1))
+    padded = padded.reshape(groups, 32)
+    lane = torch.arange(32, dtype=torch.int64, device=codes.device).reshape(1, 32)
+    planes = [((padded >> j) & 1).bitwise_left_shift_(lane).sum(1) for j in range(bits)]
+    return _to_int32(torch.stack(planes, 1).reshape(-1))                # (groups·bits,)
 
 
 def unpack_codes(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes`; returns (n,) uint8 codes."""
     groups = words.shape[0] // bits
-    w = words.to(torch.int64).reshape(groups, 1, bits)
-    lane = torch.arange(32, dtype=torch.int64, device=words.device).reshape(1, 32, 1)
-    bitvals = (w >> lane) & 1                                          # (groups, 32, bits)
-    shifts = torch.arange(bits, dtype=torch.int64, device=words.device)
-    codes = torch.sum(bitvals << shifts, dim=2)
-    return codes.reshape(-1)[:n].to(torch.uint8)
+    w = words.to(torch.int32).reshape(groups, bits, 1)
+    lane = torch.arange(32, dtype=torch.int32, device=words.device).reshape(1, 32)
+    codes = torch.zeros((groups, 32), dtype=torch.uint8, device=words.device)
+    for j in range(bits):
+        codes |= ((w[:, j] >> lane) & 1).to(torch.uint8) << j
+    return codes.reshape(-1)[:n]

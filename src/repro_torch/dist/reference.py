@@ -1,18 +1,26 @@
-"""Single-device reference of the bucketed faithful gradient sync.
+"""Single-device reference of the bucketed gradient sync.
 
-The port of ``repro.dist.reference``'s faithful path: every peer's bucket
+The port of ``repro.dist.reference``'s bucketed modes: every peer's bucket
 is EF-corrected with its one-pass statistics (``correct_stats``), planned
-from those statistics, encoded with the fused encode→pack→residual pass
-under the peer's and bucket's folded key, and the stacked wires are decoded
-into the peer mean — the all-gather of the mesh sync replaced by stacking
-over a peer axis on one device.  On the card every step runs the port's
-CUDA kernels; on the CPU their plain versions.
+from those statistics and encoded under the peer's and bucket's folded key;
+the collectives of the mesh sync are replaced by indexing over a stacked
+peer axis on one device.
 
-Ported: the faithful mode, with error feedback on and off, and the
-uncompressed ``dsgd`` mean.  Still to port: the two-phase and hierarchical
-modes and the per-leaf codec (ROADMAP Queue 1 item 8), adaptive telemetry
-state (item 9), elastic live masks (item 11) and compression metrics
-(item 12).
+- faithful: every peer's full wire is decoded into the peer mean (the
+  all-gather);
+- two_phase: each peer encodes its bucket as n chunk wires; chunk j of
+  every peer is decoded into mean chunk j (the all-to-all reduce-scatter),
+  which is planned afresh, re-encoded and decoded row by row into the full
+  mean (the all-gather);
+- hierarchical: two_phase inside each pod, then faithful across the pod
+  means.
+
+On the card every step runs the port's CUDA kernels; on the CPU their
+plain versions.  Ported: these three modes for the quantizer codecs, with
+error feedback on and off, and the uncompressed ``dsgd`` mean.  Still to
+port: the per-leaf codec (``bucket_mb=0``, ROADMAP Queue 1 item 8),
+adaptive telemetry state (item 9), elastic live masks (item 11) and
+compression metrics (item 12).
 """
 from __future__ import annotations
 
@@ -35,19 +43,26 @@ def _peer_stats(buckets: list, stats: list | None) -> list:
             for i in range(n)]
 
 
+def _in_keys(key, n: int) -> list:
+    """Per-peer incoming keys: one key for every peer, or the per-peer list
+    the hierarchical intra-pod stage hands in, already folded."""
+    return list(key) if isinstance(key, list | tuple) else [key] * n
+
+
 def bucketed_faithful_ring_mean(
-    cfg: CompressorConfig, buckets: list, key: torch.Tensor,
+    cfg: CompressorConfig, buckets: list, key,
     bits: Sequence | None = None, stats: list | None = None,
 ) -> tuple[list, list]:
     """Faithful ring mean over stacked (n, m_b) buckets.
 
-    Peer i encodes bucket b under ``fold_in(fold_in(key, i), b)`` (the
+    Peer i encodes bucket b under ``fold_in(fold_in(key_i, i), b)`` (the
     per-peer fold only when n > 1).  Returns ``(mean_buckets,
     state_stacked)`` with ``state_stacked[b]`` the (n, m_b) per-peer EF
     residual rows.
     """
     n = buckets[0].shape[0]
-    keys = [prng.fold_in(key, i) for i in range(n)] if n > 1 else [key]
+    keys = _in_keys(key, n)
+    keys = [prng.fold_in(k, i) for i, k in enumerate(keys)] if n > 1 else keys
     cfgs = bucket_cfgs(cfg, len(buckets), bits)
     codecs = [get_codec(c.method) for c in cfgs]
     stats = _peer_stats(buckets, stats)
@@ -63,6 +78,76 @@ def bucketed_faithful_ring_mean(
         states.append(torch.stack(rows))
         means.append(codecs[b].decode_reduce(cfgs[b], torch.stack(wires), sb.shape[1]))
     return means, states
+
+
+def bucketed_two_phase_mean(
+    cfg: CompressorConfig, buckets: list, key,
+    bits: Sequence | None = None, stats: list | None = None,
+) -> tuple[list, list]:
+    """Two-phase mean over stacked (n, m_b) buckets.
+
+    Peer i's incoming key is folded by i and split: ``[0]`` folded by b
+    keys its phase-1 chunk encode of bucket b, ``[1]`` folded by b its
+    phase-2 re-encode of mean chunk i.  The phase-2 plans come from each
+    mean chunk's own statistics.  Returns ``(mean_buckets,
+    state_stacked)``; the EF rows are the phase-1 residuals.
+    """
+    n = buckets[0].shape[0]
+    cfgs = bucket_cfgs(cfg, len(buckets), bits)
+    codecs = [get_codec(c.method) for c in cfgs]
+    if n == 1:
+        flats = [sb[0].to(torch.float32) for sb in buckets]
+        return flats, [torch.zeros_like(f)[None] for f in flats]
+    keys = [prng.split(prng.fold_in(k, j)) for j, k in enumerate(_in_keys(key, n))]
+    stats = _peer_stats(buckets, stats)
+    means, states = [], []
+    for b, sb in enumerate(buckets):
+        size = sb.shape[1]
+        chunk_rows, rows = [], []
+        for i in range(n):
+            flat = sb[i].to(torch.float32)
+            pln = codecs[b].plan(cfgs[b], flat, stats[i][b])
+            w, r = codecs[b].encode_chunks(cfgs[b], flat, pln, prng.fold_in(keys[i][0], b), n)
+            chunk_rows.append(w)
+            rows.append(r)
+        states.append(torch.stack(rows))
+        mc = codecs[b].chunk_elems(cfgs[b], size, n)
+        chunks = [codecs[b].decode_reduce(cfgs[b], torch.stack([w[j] for w in chunk_rows]), mc)
+                  for j in range(n)]
+        wires2 = [codecs[b].encode(cfgs[b], chunks[j], codecs[b].plan(cfgs[b], chunks[j], None),
+                                   prng.fold_in(keys[j][1], b))
+                  for j in range(n)]
+        vals = codecs[b].decode_rows(cfgs[b], torch.stack(wires2), mc)
+        means.append(vals.reshape(n * mc)[:size])
+    return means, states
+
+
+def bucketed_hierarchical_mean(
+    cfg: CompressorConfig, buckets: list, n_pod: int, key: torch.Tensor,
+    bits: Sequence | None = None, stats: list | None = None,
+) -> tuple[list, list]:
+    """Two-phase inside each pod, faithful across the pod means.
+
+    With ``k1, k2 = split(key)``, peer d of pod p enters its pod's
+    two-phase stage with ``fold_in(k1, p·nd + d)`` (the full dp index); the
+    cross-pod faithful stage gets ``k2`` and plans from the pod means' own
+    statistics.  The EF rows are the intra-pod stage's.
+    """
+    n = buckets[0].shape[0]
+    nd = n // n_pod
+    k1, k2 = prng.split(key)
+    stats = _peer_stats(buckets, stats)
+    pod_means, pod_resids = [], []
+    for p in range(n_pod):
+        in_keys = [prng.fold_in(k1, p * nd + d) for d in range(nd)]
+        m, r = bucketed_two_phase_mean(cfg, [sb[p * nd:(p + 1) * nd] for sb in buckets],
+                                       in_keys, bits, stats[p * nd:(p + 1) * nd])
+        pod_means.append(m)
+        pod_resids.append(r)
+    stacked = [torch.stack([pod_means[p][b] for p in range(n_pod)]) for b in range(len(buckets))]
+    means, _ = bucketed_faithful_ring_mean(cfg, stacked, k2, bits)
+    resids = [torch.cat([pod_resids[p][b] for p in range(n_pod)]) for b in range(len(buckets))]
+    return means, resids
 
 
 def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.Tensor,
@@ -86,6 +171,7 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     n = 1
     for s in dp_sizes:
         n *= s
+    n_pod = n // dp_sizes[-1]
     shapes = [tuple(x.shape[1:]) for x in stacked_leaves]
     bp = compressors.plan_buckets([x[0].numel() for x in stacked_leaves], ts.bucket_elements)
     per_peer = [compressors.bucket_concat([x[j] for x in stacked_leaves], bp) for j in range(n)]
@@ -93,9 +179,6 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     bits = size_adaptive_plan(cfg, ts.bits_plan, bp.sizes, ts.fp16_threshold)
     stats = None
     if compressed:
-        if ts.sync != "faithful":
-            raise NotImplementedError(
-                f"sync mode {ts.sync!r} is not ported yet (ROADMAP Queue 1 item 8)")
         stats = []
         for j in range(n):
             row, srow = [], []
@@ -108,8 +191,12 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     buckets = [torch.stack([per_peer[j][b] for j in range(n)]) for b in range(bp.n_buckets)]
     if not compressed:
         means, resids = [torch.mean(sb, dim=0) for sb in buckets], None
-    else:
+    elif ts.sync == "faithful":
         means, resids = bucketed_faithful_ring_mean(cfg, buckets, key, bits, stats)
+    elif ts.sync == "two_phase" or len(dp_sizes) == 1:
+        means, resids = bucketed_two_phase_mean(cfg, buckets, key, bits, stats)
+    else:
+        means, resids = bucketed_hierarchical_mean(cfg, buckets, n_pod, key, bits, stats)
     if not ts.error_feedback:
         resids = None
     return compressors.bucket_split(means, bp, shapes), resids, None, None

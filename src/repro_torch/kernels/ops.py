@@ -75,6 +75,26 @@ def ef_correct_stats(g: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor, Bu
     return c2.reshape(-1)[:n], _stats(out)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def _alpha(alpha: torch.Tensor) -> torch.Tensor:
+    return _f32(alpha.reshape(1))
+
+
+def _encode(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int, key: torch.Tensor):
+    """Pad ``g`` to (rows, 128), draw ``rand`` on that tile, encode; returns
+    the ``packed_size(n, bits)`` words, and the (n,) residual where the
+    kernel writes one."""
+    g2, n = _to_2d(g)
+    rand = prng.uniform(key, g2.shape, device=g2.device)
+    out = (kernel if _on_card(g2) else plain)(g2, rand, meta, n, bits)
+    words, resid = out if isinstance(out, tuple) else (out, None)
+    words = words.reshape(-1)[:packed_size(n, bits)]
+    return words if resid is None else (words, resid.reshape(-1)[:n])
+
+
 def codebook_encode_pack_residual(g: torch.Tensor, levels: torch.Tensor, bits: int,
                                   key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stochastic codebook encode + bit-pack + EF residual (K2).
@@ -82,14 +102,30 @@ def codebook_encode_pack_residual(g: torch.Tensor, levels: torch.Tensor, bits: i
     Returns ``(words, residual)``: the ``packed_size(n, bits)`` int32 wire
     words (the bits of ``pack_codes``) and the exact ``g − levels[code]``.
     """
-    g2, n = _to_2d(g)
-    rand = prng.uniform(key, g2.shape, device=g2.device)
-    levels = levels.to(torch.float32).contiguous()
-    if _on_card(g2):
-        words, resid = _e.codebook_encode_pack_resid_2d(g2, rand, levels, n, bits)
-    else:
-        words, resid = ref.codebook_encode_pack_residual(g2, rand, levels, n, bits)
-    return words.reshape(-1)[:packed_size(n, bits)], resid.reshape(-1)[:n]
+    return _encode(_e.codebook_encode_pack_resid_2d, ref.codebook_encode_pack_residual, g,
+                   _f32(levels), bits, key)
+
+
+def uniform_encode_pack_residual(g: torch.Tensor, alpha: torch.Tensor, bits: int,
+                                 key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Truncated uniform stochastic encode onto [−α, α] + bit-pack + EF
+    residual ``g − (code·2α/s − α)`` (K3).  ``alpha`` stays on the device."""
+    return _encode(_e.uniform_encode_pack_resid_2d, ref.uniform_encode_pack_residual, g,
+                   _alpha(alpha), bits, key)
+
+
+def codebook_encode_pack(g: torch.Tensor, levels: torch.Tensor, bits: int,
+                         key: torch.Tensor) -> torch.Tensor:
+    """Codebook encode + bit-pack, words only (K6)."""
+    return _encode(_e.codebook_encode_pack_2d, ref.codebook_encode_pack, g, _f32(levels),
+                   bits, key)
+
+
+def uniform_encode_pack(g: torch.Tensor, alpha: torch.Tensor, bits: int,
+                        key: torch.Tensor) -> torch.Tensor:
+    """Uniform encode + bit-pack, words only (K7)."""
+    return _encode(_e.uniform_encode_pack_2d, ref.uniform_encode_pack, g, _alpha(alpha), bits,
+                   key)
 
 
 def _to_words3(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
@@ -105,14 +141,41 @@ def _to_words3(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     return out.reshape(p, rows, wc)
 
 
+def _decode(kernel, plain, words: torch.Tensor, meta: torch.Tensor, n: int, bits: int):
+    words3 = _to_words3(words, n, bits)
+    return (kernel if _on_card(words3) else plain)(words3, meta, bits)
+
+
 def codebook_decode_reduce(words: torch.Tensor, levels: torch.Tensor, n: int,
                            bits: int) -> torch.Tensor:
     """Unpack + codebook dequant + peer mean (K4); ``words``: (peers,
     packed_size(n, bits)) int32, ``levels``: (peers, s+1).  Returns (n,)."""
-    words3 = _to_words3(words, n, bits)
-    levels = levels.to(torch.float32).contiguous()
-    if _on_card(words3):
-        out = _d.codebook_decode_reduce_3d(words3, levels, bits)
-    else:
-        out = ref.codebook_decode_reduce(words3, levels, bits)
+    out = _decode(_d.codebook_decode_reduce_3d, ref.codebook_decode_reduce, words,
+                  _f32(levels), n, bits)
     return out.reshape(-1)[:n]
+
+
+def uniform_decode_reduce(words: torch.Tensor, alphas: torch.Tensor, n: int,
+                          bits: int) -> torch.Tensor:
+    """Unpack + uniform dequant ``code·2α_p/s − α_p`` + peer mean (K5);
+    ``alphas``: (peers,).  Returns (n,)."""
+    out = _decode(_d.uniform_decode_reduce_3d, ref.uniform_decode_reduce, words,
+                  _f32(alphas), n, bits)
+    return out.reshape(-1)[:n]
+
+
+def codebook_decode_rows(words: torch.Tensor, levels: torch.Tensor, n: int,
+                         bits: int) -> torch.Tensor:
+    """Unpack + codebook dequant, one (n,) row per peer (K8): the all-gather
+    phase-2 sites, where peer j's decode is output chunk j."""
+    out = _decode(_d.codebook_decode_rows_3d, ref.codebook_decode_rows, words, _f32(levels),
+                  n, bits)
+    return out.reshape(words.shape[0], -1)[:, :n]
+
+
+def uniform_decode_rows(words: torch.Tensor, alphas: torch.Tensor, n: int,
+                        bits: int) -> torch.Tensor:
+    """Unpack + uniform dequant, one (n,) row per peer (K9)."""
+    out = _decode(_d.uniform_decode_rows_3d, ref.uniform_decode_rows, words, _f32(alphas),
+                  n, bits)
+    return out.reshape(words.shape[0], -1)[:, :n]

@@ -96,13 +96,95 @@ def codebook_encode_pack_residual(g2: torch.Tensor, rand: torch.Tensor, levels: 
     return pack_codes(codes, bits).reshape(g2.shape[0], -1), resid
 
 
-def codebook_decode_reduce(words3: torch.Tensor, levels2: torch.Tensor, bits: int) -> torch.Tensor:
-    """(peers, rows, 4·bits) wire words + (peers, s+1) codebooks ->
-    (rows, 128) mean over peers of ``levels_p[code]``: the peers are added
-    in order, then divided once by their count."""
+def codebook_encode_pack(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
+                         n: int, bits: int) -> torch.Tensor:
+    """The wire words of :func:`codebook_encode_pack_residual` alone."""
+    return codebook_encode_pack_residual(g2, rand, levels, n, bits)[0]
+
+
+def _step(alpha: torch.Tensor, s: int) -> torch.Tensor:
+    """The uniform level gap ``2α/s``, an IEEE quotient as in the kernels."""
+    return _div(2.0 * alpha, float(s))
+
+
+def uniform_encode_pack_residual(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
+                                 n: int, bits: int):
+    """(rows, 128) bucket + (rows, 128) uniforms + (1,) α -> ((rows, 4·bits)
+    int32 wire words, (rows, 128) residual ``g − (code·2α/s − α)``).
+
+    ``quantize.uniform_select`` op for op: ``scale = s/(2α)``, then
+    ``u = (clip(g, −α, α) + α)·scale``, ``k = clip(floor u, 0, s−1)``,
+    ``code = k + (rand < u − k)``.  The clamps are ``fmin``/``fmax``, which
+    drop a NaN as the kernel's ``fminf``/``fmaxf`` do, so α = 0 (an infinite
+    scale) gives code 0, as the JAX package's float→int conversion does.
+    Codes past n are zero, and the residual there is taken from the zeroed
+    code, as in the Pallas kernel.
+    """
+    s = 2**bits - 1
+    alpha = alpha.reshape(())
+    zero = torch.zeros((), dtype=torch.float32, device=g2.device)
+    scale = (zero + float(s)) / (2.0 * alpha)
+    u = (torch.minimum(torch.maximum(g2, -alpha), alpha) + alpha) * scale
+    k = torch.fmin(torch.fmax(torch.floor(u), zero), zero + float(s - 1))
+    code = torch.fmin(torch.fmax(k + (rand < u - k).to(torch.float32), zero), zero + float(s))
+    codes = code.to(torch.int64).reshape(-1)
+    codes[n:] = 0
+    resid = g2 - (codes.reshape(g2.shape).to(torch.float32) * _step(alpha, s) - alpha)
+    return pack_codes(codes, bits).reshape(g2.shape[0], -1), resid
+
+
+def uniform_encode_pack(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
+                        n: int, bits: int) -> torch.Tensor:
+    """The wire words of :func:`uniform_encode_pack_residual` alone."""
+    return uniform_encode_pack_residual(g2, rand, alpha, n, bits)[0]
+
+
+def _peer_codes(words3: torch.Tensor, p: int, bits: int) -> torch.Tensor:
+    rows = words3.shape[1]
+    return unpack_codes(words3[p].reshape(-1), rows * S.LANES, bits).to(torch.int64)
+
+
+def _codebook_vals(words3, levels2, p: int, bits: int) -> torch.Tensor:
+    return levels2[p][_peer_codes(words3, p, bits)]
+
+
+def _uniform_vals(words3, alphas, p: int, bits: int) -> torch.Tensor:
+    a = alphas[p]
+    return _peer_codes(words3, p, bits).to(torch.float32) * _step(a, 2**bits - 1) - a
+
+
+def _reduce(vals, words3, meta, bits: int) -> torch.Tensor:
+    """The peers added in order, then divided once by their count."""
     peers, rows, _ = words3.shape
     acc = torch.zeros(rows * S.LANES, dtype=torch.float32, device=words3.device)
     for p in range(peers):
-        codes = unpack_codes(words3[p].reshape(-1), rows * S.LANES, bits).to(torch.int64)
-        acc = acc + levels2[p][codes]
+        acc = acc + vals(words3, meta, p, bits)
     return _div(acc, float(peers)).reshape(rows, S.LANES)
+
+
+def _rows(vals, words3, meta, bits: int) -> torch.Tensor:
+    peers, rows, _ = words3.shape
+    return torch.stack([vals(words3, meta, p, bits) for p in range(peers)]).reshape(
+        peers, rows, S.LANES)
+
+
+def codebook_decode_reduce(words3: torch.Tensor, levels2: torch.Tensor, bits: int) -> torch.Tensor:
+    """(peers, rows, 4·bits) wire words + (peers, s+1) codebooks ->
+    (rows, 128) mean over peers of ``levels_p[code]``."""
+    return _reduce(_codebook_vals, words3, levels2, bits)
+
+
+def uniform_decode_reduce(words3: torch.Tensor, alphas: torch.Tensor, bits: int) -> torch.Tensor:
+    """(peers, rows, 4·bits) wire words + (peers,) α -> (rows, 128) mean over
+    peers of ``code·2α_p/s − α_p``."""
+    return _reduce(_uniform_vals, words3, alphas, bits)
+
+
+def codebook_decode_rows(words3: torch.Tensor, levels2: torch.Tensor, bits: int) -> torch.Tensor:
+    """(peers, rows, 4·bits) + (peers, s+1) -> (peers, rows, 128) ``levels_p[code]``."""
+    return _rows(_codebook_vals, words3, levels2, bits)
+
+
+def uniform_decode_rows(words3: torch.Tensor, alphas: torch.Tensor, bits: int) -> torch.Tensor:
+    """(peers, rows, 4·bits) + (peers,) α -> (peers, rows, 128) ``code·2α_p/s − α_p``."""
+    return _rows(_uniform_vals, words3, alphas, bits)

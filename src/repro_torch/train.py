@@ -9,6 +9,8 @@ sync runs the port's CUDA kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import prng
@@ -47,8 +49,11 @@ def client_grads(params: dict, imgs: torch.Tensor, labels: torch.Tensor):
 
 def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
                  error_feedback: bool = False, steps: int = 30, n_clients: int = 8,
-                 batch: int = 32, device="cuda") -> list[float]:
+                 batch: int = 32, device="cuda", dp_sizes: tuple | None = None) -> list[float]:
     """Fixed-seed synced training; returns the per-step mean client loss.
+
+    ``dp_sizes`` lays the clients out as (pods…, data), row-major, for the
+    hierarchical sync (default ``(n_clients,)``: one pod).
 
     Seeds follow the JAX run: ``key(0)`` for the init, ``key(42)`` for the
     class templates and ``fold_in(key(0x5EED), i)`` for step i's sync.  TF32 is
@@ -58,6 +63,9 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     error-fed sync carries into a different loss history.
     """
     device = resolve_device(device)
+    dp_sizes = (n_clients,) if dp_sizes is None else tuple(dp_sizes)
+    if math.prod(dp_sizes) != n_clients:
+        raise ValueError(f"dp_sizes {dp_sizes} do not multiply to n_clients={n_clients}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -79,9 +87,9 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
         losses, stacked = client_grads(params, imgs, labels)
         key = prng.fold_in(prng.key(_KEY_SEED), i)
         if error_feedback:
-            mean, ef, _, _ = reference_sync_state(ts, stacked, (n_clients,), key, ef=ef)
+            mean, ef, _, _ = reference_sync_state(ts, stacked, dp_sizes, key, ef=ef)
         else:
-            mean = reference_sync(ts, stacked, (n_clients,), key)
+            mean = reference_sync(ts, stacked, dp_sizes, key)
         params, state = opt.update(params, tree_unflatten(params, mean), state)
         hist.append(float(torch.mean(losses)))
     return hist

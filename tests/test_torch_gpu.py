@@ -4,9 +4,12 @@ Needs an NVIDIA GPU, ``nvcc`` and no JAX; every test is marked ``gpu`` and
 skips without a card.  Run them on the card with
 ``python3 -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
-Contract: K2 words and residual and K4 means bitwise; K1/K10 counts and max
-exact, the ln and moment sums within rtol 1e-5 (of each bin's sum, and of
-Σ|x| for the signed sum), and bitwise equal across two launches.
+Contract: K2, K3, K6, K7 words and residuals and K4, K5, K8, K9 outputs
+bitwise (the kernels are built with ``-fmad=false`` and IEEE division, so
+the uniform dequant rounds as the plain version's separate ops do); K1/K10
+counts and max exact, the ln and moment sums within rtol 1e-5 (of each
+bin's sum, and of Σ|x| for the signed sum), and bitwise equal across two
+launches.
 """
 import pytest
 
@@ -78,6 +81,40 @@ def test_encode_and_decode_kernels_bitwise(cuda, bits, n):
     assert torch.equal(mean, ref.codebook_decode_reduce(words3, levels2, bits))
 
 
+@pytest.mark.parametrize("bits", [1, 3, 8])
+@pytest.mark.parametrize("n", SIZES)
+def test_variant_kernels_bitwise(cuda, bits, n):
+    """K3, K6, K7 against their plain versions; K5, K8, K9 over their words."""
+    gen = torch.Generator(device=cuda).manual_seed(bits * 300 + n)
+    peers = 3
+    uwords, cwords, alphas, levels = [], [], [], []
+    for p in range(peers):
+        g2 = ops._to_2d(_heavy(gen, n, cuda, 0.05))[0]
+        rand = prng.uniform(prng.key(p + 7), g2.shape, device=cuda)
+        alpha = (0.05 + 0.2 * torch.rand(1, generator=gen, device=cuda)).contiguous()
+        w, r = encode_fused.uniform_encode_pack_resid_2d(g2, rand, alpha, n, bits)
+        w_ref, r_ref = ref.uniform_encode_pack_residual(g2, rand, alpha, n, bits)
+        assert torch.equal(w, w_ref) and torch.equal(r, r_ref)
+        assert torch.equal(encode_fused.uniform_encode_pack_2d(g2, rand, alpha, n, bits), w_ref)
+        lv = torch.sort(torch.rand(2**bits, generator=gen, device=cuda) * 0.4 - 0.2).values
+        lv[0], lv[-1] = -0.2, 0.2
+        wc = encode_fused.codebook_encode_pack_2d(g2, rand, lv, n, bits)
+        assert torch.equal(wc, ref.codebook_encode_pack(g2, rand, lv, n, bits))
+        assert torch.equal(wc, encode_fused.codebook_encode_pack_resid_2d(g2, rand, lv, n, bits)[0])
+        uwords.append(w)
+        cwords.append(wc)
+        alphas.append(alpha)
+        levels.append(lv)
+    uw3, cw3 = torch.stack(uwords), torch.stack(cwords)
+    a2, l2 = torch.cat(alphas), torch.stack(levels)
+    assert torch.equal(decode.uniform_decode_reduce_3d(uw3, a2, bits),
+                       ref.uniform_decode_reduce(uw3, a2, bits))
+    assert torch.equal(decode.uniform_decode_rows_3d(uw3, a2, bits),
+                       ref.uniform_decode_rows(uw3, a2, bits))
+    assert torch.equal(decode.codebook_decode_rows_3d(cw3, l2, bits),
+                       ref.codebook_decode_rows(cw3, l2, bits))
+
+
 def test_wrappers_count_launches_and_reject_bad_operands(cuda):
     kernels.reset_launch_counts()
     g = torch.randn(5000, device=cuda)
@@ -85,16 +122,29 @@ def test_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.ef_correct_stats(g, g)
     words, _ = ops.codebook_encode_pack_residual(g, torch.linspace(-1, 1, 8, device=cuda), 3,
                                                  prng.key(0))
-    ops.codebook_decode_reduce(words[None], torch.linspace(-1, 1, 8, device=cuda)[None], 5000, 3)
-    assert kernels.launch_counts() == {"ef_correct_stats_2d": 1, "bucket_stats_2d": 1,
-                                       "codebook_encode_pack_resid_2d": 1,
-                                       "codebook_decode_reduce_3d": 1}
+    lv = torch.linspace(-1, 1, 8, device=cuda)
+    ops.codebook_decode_reduce(words[None], lv[None], 5000, 3)
+    a = torch.tensor(1.0, device=cuda)
+    uw, _ = ops.uniform_encode_pack_residual(g, a, 3, prng.key(1))
+    ops.uniform_encode_pack(g, a, 3, prng.key(2))
+    ops.codebook_encode_pack(g, lv, 3, prng.key(3))
+    ops.uniform_decode_reduce(uw[None], a.reshape(1), 5000, 3)
+    ops.uniform_decode_rows(uw[None], a.reshape(1), 5000, 3)
+    ops.codebook_decode_rows(words[None], lv[None], 5000, 3)
+    assert kernels.launch_counts() == {k.__name__: 1 for k in kernels.KERNELS}
     with pytest.raises(ValueError):
         stats.bucket_stats_2d(torch.zeros((4, 64), device=cuda), 10)
     with pytest.raises(ValueError):
         encode_fused.codebook_encode_pack_resid_2d(
             torch.zeros((4, 128), device=cuda), torch.zeros((4, 128), device=cuda),
             torch.zeros(4, device=cuda), 10, 3)
+    with pytest.raises(ValueError):
+        encode_fused.uniform_encode_pack_2d(
+            torch.zeros((4, 128), device=cuda), torch.zeros((4, 128), device=cuda),
+            torch.zeros(2, device=cuda), 10, 3)
+    with pytest.raises(ValueError):
+        decode.uniform_decode_rows_3d(torch.zeros((2, 4, 12), dtype=torch.int32, device=cuda),
+                                      torch.zeros(3, device=cuda), 3)
 
 
 def test_synced_training_runs_through_the_kernels(cuda):
@@ -106,3 +156,15 @@ def test_synced_training_runs_through_the_kernels(cuda):
     assert len(hist) == 2 and all(h == h for h in hist)
     assert counts["ef_correct_stats_2d"] == 16 and counts["codebook_encode_pack_resid_2d"] == 16
     assert counts["codebook_decode_reduce_3d"] == 2 and counts["bucket_stats_2d"] == 0
+
+
+def test_two_phase_tqsgd_runs_through_the_uniform_kernels(cuda):
+    from repro_torch.train import train_synced
+
+    kernels.reset_launch_counts()
+    hist = train_synced(sync="two_phase", method="tqsgd", steps=1, device="cuda")
+    counts = kernels.launch_counts()
+    assert len(hist) == 1 and hist[0] == hist[0]
+    assert counts["uniform_encode_pack_resid_2d"] == 8 and counts["uniform_decode_reduce_3d"] == 8
+    assert counts["uniform_encode_pack_2d"] == 8 and counts["uniform_decode_rows_3d"] == 1
+    assert counts["bucket_stats_2d"] == 16

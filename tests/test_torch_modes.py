@@ -1,0 +1,38 @@
+"""The port's 30-step golden runs of the two-phase and hierarchical sync and
+of the uniform TQSGD quantizer, on the CPU, against the windows of the JAX
+package's ``tests/test_golden_convergence.py``: two_phase (8,) 0.0037 ±
+0.05 and hierarchical (2, 4) 0.0207 ± 0.05, both tnqsgd, EF off.  The JAX
+package pins no tqsgd window; its faithful tqsgd run, under the original
+threefry layout the port draws in, ends at 0.01793 (``_run("faithful",
+"tqsgd", False, (8,))`` on the CPU, JAX 0.9.0 with
+``jax_threefry_partitionable`` off), held here with the pinned windows'
+tolerance.  Every run must also converge as the JAX test demands,
+``hist[-1] < hist[0] - 5``.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import train  # noqa: E402
+
+# id -> (train_synced keywords, final loss, tolerance)
+GOLDEN = {
+    "two_phase": (dict(sync="two_phase"), 0.0037, 0.05),
+    "hierarchical": (dict(sync="hierarchical", dp_sizes=(2, 4)), 0.0207, 0.05),
+    "faithful_tqsgd": (dict(sync="faithful", method="tqsgd"), 0.0179, 0.05),
+}
+
+
+@pytest.mark.parametrize("case", list(GOLDEN))
+def test_golden_run_on_cpu(case):
+    kw, want, tol = GOLDEN[case]
+    hist = train.train_synced(bits=3, error_feedback=False, steps=30, device="cpu", **kw)
+    assert len(hist) == 30
+    assert hist[0] == pytest.approx(6.4895, abs=1e-3), hist
+    assert abs(hist[-1] - want) <= tol, hist
+    assert hist[-1] < hist[0] - 5.0, hist
+
+
+def test_dp_sizes_must_cover_the_clients():
+    with pytest.raises(ValueError, match="dp_sizes"):
+        train.train_synced(sync="hierarchical", dp_sizes=(2, 3), steps=1, device="cpu")
