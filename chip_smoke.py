@@ -7,22 +7,30 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
 1. card: print ``nvidia-smi``'s name and power limit, require CUDA;
 2. build: compile every kernel of the main path from ``csrc/`` and print
    the ``-Xptxas -v`` register and shared-memory report;
-3. kernel parity: each of the ten kernels against its plain PyTorch version
-   on the card on identical inputs, at smallnet's bucket (206,922
-   elements), a full 4 MB bucket (1,048,576) and a ragged size, 8 peers,
-   1, 3 and 8 bits, and at 3 bits at every shape and peer count the main
-   path gives them (the padded buckets and chunks of two_phase (8,) and of
-   a (2, 4) pod, and the 2-peer cross-pod stage);
+3. kernel parity: each of the eleven kernels against its plain PyTorch
+   version on the card on identical inputs.  K1-K10 at smallnet's bucket
+   (206,922 elements), a full 4 MB bucket (1,048,576) and a ragged size, 8
+   peers, 1, 3 and 8 bits, and at 3 bits at every shape and peer count the
+   main path gives them (the padded buckets and chunks of two_phase (8,)
+   and of a (2, 4) pod, and the 2-peer cross-pod stage); K11 at the P
+   factors of smallnet's bucket (809 rows) and of a 4 MB bucket (1,024),
+   ranks 1, 3, 4 and 64, a rank-deficient factor (by reconstruction) and a
+   zero column;
 4. main path: the paper's 8-client smallnet training through
-   ``repro_torch.train.train_synced`` at 3 bits: faithful tnqsgd (EF off and
+   ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
-   faithful tqsgd and qsgd, two_phase tqsgd; each EF-on run twice to show
-   it repeats bit for bit.  Each run is held to the JAX package's golden
-   window (or, where it pins none, to convergence), and every kernel's
-   launch count, read around each run, to the count its sync mode implies;
-5. times: every kernel and its plain version at the 4 MB x 8-peer shape,
-   beside its byte bound, the phase-2 kernels at their chunk shape, and
-   one synced step's wall time per sync mode.
+   faithful tqsgd and qsgd, two_phase tqsgd; PowerSGD at rank 4 with EF
+   in the faithful, two_phase (8,) and hierarchical (2, 4) modes; each
+   EF-on run twice to show it repeats bit for bit.  Each run is held to the
+   JAX package's golden window (or its own value under the original
+   threefry layout, or convergence), and every kernel's launch count, read
+   around each run, to the count its sync mode implies.  Then one synced
+   step of the mixed plan (tnqsgd 3 bits, powersgd rank 4, tnqsgd 2 bits
+   over three buckets) on the card, held against the same step on the CPU;
+5. times: K1-K10 and their plain versions at the 4 MB x 8-peer shape, K11
+   at smallnet's and a 4 MB bucket's P factor beside torch.linalg.qr,
+   each beside its byte bound, the phase-2 kernels at their chunk shape,
+   and one synced step's wall time per sync mode and method.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -43,7 +51,31 @@ PEERS = 8
 SLICE_N = 206_922                  # smallnet's parameters: one bucket
 FULL_N = 1_048_576                 # one full 4 MB bucket (bucket_mb=4.0)
 RAGGED_N = 100_003                 # not a multiple of 32
+FP32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 STATS_RTOL = 1e-5
+GS_RTOL, GS_ATOL = 1e-5, 1e-6      # K11 against its plain version (another sum order)
+# smallnet's gradient leaves, in jax.tree.leaves order
+SMALLNET_SHAPES = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (1568, 128), (10,),
+                   (128, 10)]
+
+
+def bound(nbytes: int, flops: int = 0) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what bounds it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def gs_bytes(rows: int, r: int) -> int:
+    """K11's bytes: the (rows, r) fp32 factor read once and written once."""
+    return 2 * rows * r * 4
+
+
+def gs_flops(rows: int, r: int) -> int:
+    """K11's float operations: per pivot, the reorthogonalization against
+    the earlier columns and the projection out of the later ones (a dot
+    product and an update, 4·rows, per column pair), the norm and the
+    scaling (3·rows)."""
+    return r * rows * (4 * r - 1)
 
 
 def fail(msg: str) -> None:
@@ -81,6 +113,7 @@ def main() -> int:
     from repro_torch.kernels import decode as kdec
     from repro_torch.kernels import encode_fused as kenc
     from repro_torch.kernels import ops
+    from repro_torch.kernels import orthogonalize as korth
     from repro_torch.kernels import stats as kstats
 
     # -- 1. card ----------------------------------------------------------
@@ -212,6 +245,41 @@ def main() -> int:
                                levels=levels, words3=words3, levels2=levels2,
                                alphas=alphas, uwords3=uwords3, alphas1=alphas1)
 
+    # K11: the P factor of smallnet's bucket (matrix_shape(206,922) = (809,
+    # 256)) and of a 4 MB bucket ((1024, 1024)), at rank 4, the rank cap 64,
+    # rank 1, and tests/test_lowrank.py's (1000, 3)
+    for rows, r in ((809, 4), (1024, 4), (1024, 64), (1000, 3), (809, 1)):
+        p = torch.randn(rows, r, generator=gen, device=dev)
+        out = korth.orthogonalize_2d(p)
+        check(torch.equal(korth.orthogonalize_2d(p), out), f"K11 not deterministic at {rows}x{r}")
+        want = ref.orthogonalize(p)
+        d = torch.abs(out - want)
+        check(bool((d <= GS_ATOL + GS_RTOL * torch.abs(want)).all()),
+              f"K11 beyond rtol {GS_RTOL} / atol {GS_ATOL} at {rows}x{r} (max {float(d.max())})")
+        max_err["orthogonalize_2d"] = max(max_err["orthogonalize_2d"], float(d.max()))
+        print(f"[parity] K11 {rows}x{r}: within rtol {GS_RTOL} / atol {GS_ATOL}, max abs err "
+              f"{float(d.max()):.3e}, bitwise deterministic")
+    # a rank-deficient factor: its surplus columns are normalized rounding
+    # noise, so it is held by P̂ᵀP̂ = I and the reconstruction P̂P̂ᵀp = p
+    p = torch.randn(809, 4, generator=gen, device=dev)
+    p[:, 2] = 0.5 * p[:, 0] + 2.0 * p[:, 1]
+    p[:, 3] = p[:, 1]
+    scale = float(p.abs().max())
+    for label, q in (("K11", ops.orthogonalize(p)), ("plain", ref.orthogonalize(p))):
+        gram = float(torch.abs(q.T @ q - torch.eye(4, device=dev)).max())
+        recon = float(torch.abs(q @ (q.T @ p) - p).max())
+        check(gram <= 1e-5 and recon <= 1e-5 * scale,
+              f"{label} rank-deficient 809x4: |P̂ᵀP̂ - I| {gram}, |P̂P̂ᵀp - p| {recon}")
+        print(f"[parity] {label} rank-deficient 809x4: |P̂ᵀP̂ - I| {gram:.3e}, "
+              f"|P̂P̂ᵀp - p| {recon:.3e} (scale {scale:.3f})")
+    z = torch.zeros(64, 4, device=dev)
+    z[:, 0] = 1.0
+    q = ops.orthogonalize(z)
+    check(bool((q[:, 1:] == 0).all()) and bool((q[:, 0] == 0.125).all()),
+          "K11 zero columns not exactly zero")
+    print("[parity] K11 zero columns stay exactly zero")
+    torch.cuda.synchronize()
+
     # -- 4. main path -----------------------------------------------------
     from repro_torch.train import train_synced
 
@@ -254,6 +322,26 @@ def main() -> int:
                           expected_launches(ef_off, 8, 1, uniform=True)),
         "two_phase_tqsgd": (dict(sync="two_phase", method="tqsgd"), None,
                             expected_launches({"bucket_stats_2d": 16}, 8, 8, 8, 1, uniform=True)),
+        # PowerSGD, rank 4, EF on: per step K1 and K11 for each of the 8
+        # peers; no plan, no quantizer kernel.  two_phase decodes every
+        # peer's full wire in phase 1 (not chunkable); hierarchical adds
+        # the cold cross-pod stage: K10 for the 2 pod means' (unused)
+        # statistics and K11 for each.  Windows: faithful the JAX
+        # package's; the other two JAX's own runs under the original
+        # threefry layout (CPU), with its tolerance.
+        "faithful_powersgd": (dict(sync="faithful", method="powersgd", error_feedback=True),
+                              (0.0110, 0.05),
+                              expected_launches({"ef_correct_stats_2d": 8, "orthogonalize_2d": 8},
+                                                0, 0)),
+        "two_phase_powersgd": (dict(sync="two_phase", method="powersgd", error_feedback=True),
+                               (0.011024, 0.05),
+                               expected_launches({"ef_correct_stats_2d": 8, "orthogonalize_2d": 8},
+                                                 0, 0)),
+        "hierarchical_powersgd": (dict(sync="hierarchical", dp_sizes=(2, 4), method="powersgd",
+                                       error_feedback=True), (0.136193, 0.05),
+                                  expected_launches({"ef_correct_stats_2d": 8,
+                                                     "orthogonalize_2d": 10,
+                                                     "bucket_stats_2d": 2}, 0, 0)),
     }
     runs = {}
     for label, (kw, window, counts_per_step) in golden.items():
@@ -287,6 +375,73 @@ def main() -> int:
                       f"{label}: final loss {hist[-1]} outside {window[0]} ± {window[1]}")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} never launched on the main path")
+
+    # one synced step of a mixed plan, EF on (a random warm-start aux), on
+    # the card and then on the CPU with the card's quantizer plans replayed:
+    # the quantizer buckets must agree bit for bit (every kernel is bitwise
+    # to its plain version given the plan), the powersgd bucket within
+    # rtol 1e-5 / atol 1e-5 x its largest magnitude (cuBLAS and the CPU
+    # reduce the products in other orders).  At bucket_mb=0.02 (5,242
+    # elements) smallnet's leaves form three buckets.
+    from repro_torch.core import codecs as kcodecs
+    from repro_torch.core.compressors import plan_buckets
+    from repro_torch.core.quantizers import QuantMeta
+    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.dist.train_step import TrainStepConfig
+
+    mixed_ts = TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.02,
+                               bits_plan=(3, ("powersgd", 4), 2),
+                               compressor=CompressorConfig(method="tnqsgd", bits=3))
+    bp = plan_buckets([math.prod(s) for s in SMALLNET_SHAPES], mixed_ts.bucket_elements)
+    check(bp.sizes == (4928, 200704, 1290), f"mixed-plan buckets {bp.sizes}")
+    mleaves = [heavy(PEERS * math.prod(s), 1e-3).reshape(PEERS, *s) for s in SMALLNET_SHAPES]
+    mef = [heavy(PEERS * m, 1e-4).reshape(PEERS, m)
+           for m in kcodecs.bucket_state_sizes(mixed_ts.compressor, bp.sizes, mixed_ts.bits_plan)]
+    mkey = prng.fold_in(prng.key(0x5EED), 0)
+    orig_plan, card_plans = kcodecs.QuantizerCodec.plan, []
+
+    def recording(self, cfg, flat, stat):
+        card_plans.append(orig_plan(self, cfg, flat, stat))
+        return card_plans[-1]
+
+    try:
+        kcodecs.QuantizerCodec.plan = recording
+        kernels.reset_launch_counts()
+        mean_card, ef_card, _, _ = reference_sync_state(mixed_ts, mleaves, (PEERS,), mkey, ef=mef)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        replay = iter(card_plans)
+
+        def replayed(self, cfg, flat, stat):
+            pl = next(replay)
+            return QuantMeta(levels=pl.levels.cpu(), alpha=pl.alpha.cpu())
+
+        kcodecs.QuantizerCodec.plan = replayed
+        mean_cpu, ef_cpu, _, _ = reference_sync_state(
+            mixed_ts, [x.cpu() for x in mleaves], (PEERS,), mkey, ef=[e.cpu() for e in mef])
+    finally:
+        kcodecs.QuantizerCodec.plan = orig_plan
+    want = dict.fromkeys(launches, 0)
+    want.update(ef_correct_stats_2d=3 * PEERS, codebook_encode_pack_resid_2d=2 * PEERS,
+                codebook_decode_reduce_3d=2, orthogonalize_2d=PEERS)
+    check(counts == want, f"mixed plan: launches {counts}, expected {want}")
+    for b in (0, 2):
+        check(torch.equal(ef_card[b].cpu(), ef_cpu[b]), f"mixed plan: bucket {b} EF rows differ")
+    for i in (0, 1, 2, 3, 4, 6, 7):
+        check(torch.equal(mean_card[i].cpu(), mean_cpu[i]), f"mixed plan: leaf {i} mean differs")
+    m1 = bp.sizes[1]
+    mixed_err = {}
+    for what, got, ref_ in (("mean", mean_card[5], mean_cpu[5]),
+                            ("residual", ef_card[1][:, :m1], ef_cpu[1][:, :m1]),
+                            ("aux", ef_card[1][:, m1:], ef_cpu[1][:, m1:])):
+        d = torch.abs(got.cpu() - ref_)
+        scale = float(ref_.abs().max())
+        check(bool((d <= 1e-5 * torch.abs(ref_) + 1e-5 * scale).all()),
+              f"mixed plan: powersgd {what} beyond tolerance (max {float(d.max())} of {scale})")
+        mixed_err[what] = float(d.max()) / scale
+    print(f"[mixed] plan (3, ('powersgd', 4), 2) over buckets {bp.sizes}: launches "
+          f"{json.dumps(counts)}; quantizer buckets bitwise card vs CPU, powersgd bucket max "
+          f"abs err / max magnitude {json.dumps(mixed_err)}")
 
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:
@@ -392,20 +547,44 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:171"),
     })
+    # K11 at the main path's shape: the (809, 4) P factor of smallnet's
+    # bucket, one per peer; the library yardstick is torch.linalg.qr (Q
+    # equals MGS's up to column signs at full column rank).
+    gs_p = [torch.randn(809, 4, generator=gen, device=dev) for _ in range(PEERS)]
+    spec["orthogonalize_2d"] = dict(
+        fn=korth.orthogonalize_2d, plain=ref.orthogonalize,
+        calls=[(x,) for x in gs_p], bytes=gs_bytes(809, 4), flops=gs_flops(809, 4),
+        library=lambda x: torch.linalg.qr(x, mode="reduced"), library_calls=[(x,) for x in gs_p],
+        library_name="torch.linalg.qr", source="src/repro_torch/kernels/csrc/orthogonalize.cu",
+        replaces="src/repro/kernels/orthogonalize.py:71")
     check(set(spec) == set(launches), "every kernel needs a timing spec")
     per_step = {k: max(r["counts"][k] / len(r["hist"]) for r in runs.values()) for k in launches}
     records = []
     for name, sp in spec.items():
         ms = graph_ms(sp["fn"], sp["calls"])
         plain_ms = eager_ms(sp["plain"], sp["calls"][:2])
-        bound_ms = sp["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = bound(sp["bytes"], sp.get("flops", 0))
+        library_ms = eager_ms(sp["library"], sp["library_calls"]) if "library" in sp else None
         rec = {"name": name, "route": "cuda", "source": sp["source"],
                "replaces": sp["replaces"], "launches": launches[name],
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         records.append(rec)
         print("[time] " + json.dumps(dict(rec, bytes=sp["bytes"], launches_per_step=per_step[name],
-                                          library="none", card=card)))
+                                          library=sp.get("library_name", "none"), card=card)))
+
+    # K11 at a full 4 MB bucket's P factor: matrix_shape(1,048,576) = (1024,
+    # 1024), rank 4
+    gs_big = [torch.randn(1024, 4, generator=gen, device=dev) for _ in range(PEERS)]
+    big_bound, big_by = bound(gs_bytes(1024, 4), gs_flops(1024, 4))
+    print("[time] " + json.dumps({
+        "k11_factor": [1024, 4],
+        "ms": graph_ms(korth.orthogonalize_2d, [(x,) for x in gs_big]),
+        "plain_ms": eager_ms(ref.orthogonalize, [(x,) for x in gs_big[:2]]),
+        "library_ms": eager_ms(lambda x: torch.linalg.qr(x, mode="reduced"),
+                               [(x,) for x in gs_big]),
+        "bound_ms": big_bound, "bound_by": big_by, "bytes": gs_bytes(1024, 4),
+        "flops": gs_flops(1024, 4), "library": "torch.linalg.qr", "card": card}))
 
     # the phase-2 sites: 8 peers x 131,072-element chunks of one 4 MB bucket
     # (one chunk per encode, all 8 chunks per rows decode); likely launch-bound
@@ -442,11 +621,7 @@ def main() -> int:
             "bytes": nbytes, "card": card}))
 
     # the synced step: 8 peers' smallnet gradients through each sync mode
-    from repro_torch.dist.reference import reference_sync_state
-    from repro_torch.dist.train_step import TrainStepConfig
-
-    shapes = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (1568, 128), (10,), (128, 10)]
-    leaves = [heavy(PEERS * math.prod(s), 1e-3).reshape(PEERS, *s) for s in shapes]
+    leaves = [heavy(PEERS * math.prod(s), 1e-3).reshape(PEERS, *s) for s in SMALLNET_SHAPES]
     key = prng.fold_in(prng.key(0x5EED), 0)
     for sync, dp, method, ef_on in (("faithful", (PEERS,), "tnqsgd", False),
                                     ("faithful", (PEERS,), "tnqsgd", True),
@@ -454,10 +629,14 @@ def main() -> int:
                                     ("two_phase", (PEERS,), "tnqsgd", True),
                                     ("hierarchical", (2, PEERS // 2), "tnqsgd", False),
                                     ("faithful", (PEERS,), "tqsgd", False),
-                                    ("two_phase", (PEERS,), "tqsgd", False)):
+                                    ("two_phase", (PEERS,), "tqsgd", False),
+                                    ("faithful", (PEERS,), "powersgd", True)):
         ts = TrainStepConfig(sync=sync, error_feedback=ef_on,
                              compressor=CompressorConfig(method=method, bits=3))
-        ef = [torch.zeros((PEERS, SLICE_N), device=dev)] if ef_on else None
+        ef = None
+        if ef_on:   # the powersgd row carries its Q factor after the residual
+            ef = [torch.zeros((PEERS, m), device=dev)
+                  for m in kcodecs.bucket_state_sizes(ts.compressor, [SLICE_N])]
         walls = []
         for _ in range(6):
             torch.cuda.synchronize()
@@ -499,6 +678,34 @@ def main() -> int:
         "decode_K4_x1": phase(lambda: codec.decode_reduce(cfg, torch.stack(wires), SLICE_N)),
     }
     print("[time] " + json.dumps({"synced_step_breakdown_ms": breakdown, "card": card}))
+
+    # the faithful powersgd step (rank 4, EF on, a warm start), phase by phase
+    from repro_torch.core import lowrank
+
+    pcfg = CompressorConfig(method="powersgd", rank=4)
+    pcodec = get_codec("powersgd")
+    prows, pcols = lowrank.matrix_shape(SLICE_N)
+    resid = [heavy(SLICE_N, 1e-4) for _ in range(PEERS)]
+    corrected = [ops.ef_correct_stats(f, e)[0] for f, e in zip(flats, resid)]
+    aux = [heavy(pcols * 4, 1.0) for _ in range(PEERS)]
+    mats = []
+    for c in corrected:
+        m_ = torch.zeros(prows * pcols, device=dev)
+        m_[:SLICE_N] = c
+        mats.append(m_.reshape(prows, pcols))
+    ps = [m_ @ a.reshape(pcols, 4) for m_, a in zip(mats, aux)]
+    phats = [ops.orthogonalize(x) for x in ps]
+    pwires = [pcodec.encode_residual(pcfg, c, None, None, a)[0] for c, a in zip(corrected, aux)]
+    pbreak = {
+        "ef_correct_K1_x8": phase(lambda: [ops.ef_correct_stats(f, e) for f, e in zip(flats, resid)]),
+        "matmul_P_x8": phase(lambda: [m_ @ a.reshape(pcols, 4) for m_, a in zip(mats, aux)]),
+        "orthogonalize_K11_x8": phase(lambda: [ops.orthogonalize(x) for x in ps]),
+        "matmul_Qn_own_x8": phase(lambda: [(ph @ (m_.T @ ph).T) for m_, ph in zip(mats, phats)]),
+        "encode_residual_x8": phase(lambda: [pcodec.encode_residual(pcfg, c, None, None, a)
+                                             for c, a in zip(corrected, aux)]),
+        "decode_x1": phase(lambda: pcodec.decode_reduce(pcfg, torch.stack(pwires), SLICE_N)),
+    }
+    print("[time] " + json.dumps({"powersgd_step_breakdown_ms": pbreak, "card": card}))
 
     print(card_line())
     print(json.dumps({"kernels": records}))

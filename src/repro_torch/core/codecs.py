@@ -1,17 +1,27 @@
-"""Codec registry — the quantizer family of ``repro.core.codecs``.
+"""Codec registry — the port of ``repro.core.codecs``.
 
 A codec owns the local halves of the bucketed sync: the per-bucket plan,
-the fused encode→pack→residual pass and the fused decode→peer-mean pass.
+the fused encode→pack→residual pass and the fused decode→peer-mean pass,
+and the static wire and state geometry.  The sync bodies branch only on
+the interface (``chunkable``, ``state_extra``), never on the method name.
+
 Wire contract: one peer's transmission for an n-element bucket is one 1-D
 int32 vector of ``wire_words(cfg, n)`` words holding uint32 bit patterns —
-``[packed_size(n, bits) code words][s+1 bitcast float32 levels]``.
+for the quantizers ``[packed_size(n, bits) code words][s+1 bitcast float32
+levels]``, for ``powersgd`` the bitcast P̂/Q factors (``core.lowrank``).
 
 Codebook methods (nqsgd, tnqsgd) walk the shipped codebook; the uniform
 methods (qsgd, tqsgd) encode from α and decode from ``levels[-1]``, through
-their own kernels.  A bucket also splits into ``n_chunks`` peer chunks for
-the two-phase reduce-scatter (``encode_chunks``): row j of the result is a
-complete wire for chunk j of ``chunk_elems`` elements.  The fp16 tier and
-powersgd wait for ROADMAP Queue 1 items 4 and 10.
+their own kernels.  A chunkable bucket also splits into ``n_chunks`` peer
+chunks for the two-phase reduce-scatter (``encode_chunks``): row j of the
+result is a complete wire for chunk j of ``chunk_elems`` elements.
+
+State contract: a bucket's EF row is ``concat(resid, aux)`` of length
+``n + state_extra(cfg, n)``; the aux tail is codec memory carried from step
+to step (``powersgd``: the warm-started Q factor), empty for the
+quantizers.  The quantizers register at import, ``powersgd`` lazily from
+``core.lowrank`` on the first lookup; the fp16 tier waits for ROADMAP
+Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ import torch
 from repro_torch.adaptive.telemetry import bucket_statistics
 from repro_torch.kernels import ops
 
-from .compressors import METHODS, CompressorConfig, plan_from_stats
+from .compressors import METHODS, CompressorConfig, plan_from_stats, wire_bytes
 from .quantizers import QuantMeta, packed_size
 
 # Methods whose codebook is the uniform linspace: the kernels encode and
@@ -56,7 +66,66 @@ def _levels_from_wire(words: torch.Tensor) -> torch.Tensor:
     return words.contiguous().view(torch.float32)
 
 
-class QuantizerCodec:
+class Codec:
+    """One registered compressor method (see the module docstring).
+
+    The geometry methods (``wire_words``, ``chunk_*``, ``state_extra``)
+    return Python ints, fixed by the config and the bucket size.
+    """
+
+    name: str = ""
+    #: supports the two-phase peer-chunk split (reduce-scatter layout)
+    chunkable: bool = True
+    #: the method's fidelity knob is ``cfg.rank`` (else ``cfg.bits``)
+    rank_based: bool = False
+
+    def plan(self, cfg: CompressorConfig, flat: torch.Tensor, stat):
+        """Data-dependent per-bucket plan; opaque to callers."""
+        return None
+
+    def wire_words(self, cfg: CompressorConfig, n: int) -> int:
+        """int32 words of one peer's full-bucket transmission."""
+        raise NotImplementedError
+
+    def wire_bytes(self, cfg: CompressorConfig, n: int) -> int:
+        """Accounted wire bytes (the quantizers add their α word)."""
+        return 4 * self.wire_words(cfg, n)
+
+    def state_extra(self, cfg: CompressorConfig, n: int) -> int:
+        """Aux words appended to the bucket's EF residual row."""
+        return 0
+
+    def encode(self, cfg: CompressorConfig, flat: torch.Tensor, pln,
+               key: torch.Tensor) -> torch.Tensor:
+        """Flat (n,) fp32 -> (wire_words,) wire."""
+        raise NotImplementedError
+
+    def encode_residual(self, cfg: CompressorConfig, flat: torch.Tensor, pln,
+                        key: torch.Tensor, aux=None):
+        """-> (wire, EF residual ``flat − own``, new aux or None)."""
+        raise NotImplementedError
+
+    def decode_reduce(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
+        """(peers, wire_words) gathered rows -> (n,) fp32 peer mean."""
+        raise NotImplementedError
+
+    def decode_rows(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
+        """(peers, wire_words) rows -> (peers, n) fp32, one row per peer."""
+        raise NotImplementedError
+
+    def chunk_elems(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
+        raise NotImplementedError
+
+    def chunk_wire_words(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
+        raise NotImplementedError
+
+    def encode_chunks(self, cfg: CompressorConfig, flat: torch.Tensor, pln,
+                      key: torch.Tensor, n_chunks: int):
+        """-> ((n_chunks, chunk_wire_words) rows, (n,) EF residual)."""
+        raise NotImplementedError
+
+
+class QuantizerCodec(Codec):
     """The paper's scalar quantizers: one codebook per bucket, shipped in
     the wire after the packed codes."""
 
@@ -72,8 +141,8 @@ class QuantizerCodec:
     def wire_words(self, cfg: CompressorConfig, n: int) -> int:
         return packed_size(n, cfg.bits) + cfg.s + 1
 
-    def state_extra(self, cfg: CompressorConfig, n: int) -> int:
-        return 0
+    def wire_bytes(self, cfg: CompressorConfig, n: int) -> int:
+        return wire_bytes(cfg, n)
 
     def encode(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
                key: torch.Tensor) -> torch.Tensor:
@@ -82,10 +151,10 @@ class QuantizerCodec:
         return torch.cat([words, _levels_to_wire(pln.levels)])
 
     def encode_residual(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
-                        key: torch.Tensor):
-        """Flat (n,) fp32 -> (wire, EF residual ``flat − own``)."""
+                        key: torch.Tensor, aux=None):
+        """Flat (n,) fp32 -> (wire, EF residual ``flat − own``, None)."""
         words, resid = _encode(cfg, "encode_pack_residual", flat, pln, key)
-        return torch.cat([words, _levels_to_wire(pln.levels)]), resid
+        return torch.cat([words, _levels_to_wire(pln.levels)]), resid, None
 
     def _split(self, cfg: CompressorConfig, rows: torch.Tensor, n: int):
         w = packed_size(n, cfg.bits)
@@ -120,32 +189,76 @@ class QuantizerCodec:
         return torch.cat([words.reshape(n_chunks, -1), lv], dim=1), resid[:flat.numel()]
 
 
-_REGISTRY = {m: QuantizerCodec(m) for m in METHODS}
+_REGISTRY: dict[str, Codec] = {}
 
 
-def get_codec(method: str) -> QuantizerCodec:
+def register_codec(codec: Codec) -> Codec:
+    """Register ``codec`` under ``codec.name``; a second registration of a
+    name raises."""
+    if not codec.name:
+        raise ValueError("codec must set a non-empty name")
+    if codec.name in _REGISTRY:
+        raise ValueError(f"codec {codec.name!r} is already registered "
+                         f"({type(_REGISTRY[codec.name]).__name__})")
+    _REGISTRY[codec.name] = codec
+    return codec
+
+
+def _ensure_builtin() -> None:
+    # powersgd registers when core.lowrank is imported, which imports this
+    # module, so its import waits for the first lookup
+    if "powersgd" not in _REGISTRY:
+        from . import lowrank  # noqa: F401  (registers powersgd)
+
+
+def get_codec(method: str) -> Codec:
     """The registered codec for ``method``."""
+    _ensure_builtin()
     try:
         return _REGISTRY[method]
     except KeyError:
         raise KeyError(f"no codec registered for method {method!r}; known: "
-                       f"{tuple(sorted(_REGISTRY))}") from None
+                       f"{known_methods()}") from None
+
+
+def known_methods() -> tuple[str, ...]:
+    """All registered method names, sorted."""
+    _ensure_builtin()
+    return tuple(sorted(_REGISTRY))
+
+
+for _m in METHODS:
+    register_codec(QuantizerCodec(_m))
+del _m
 
 
 def bucket_cfg_entry(cfg: CompressorConfig, entry) -> CompressorConfig:
-    """Resolve one per-bucket plan entry — an int bit width, a
-    ``("method", bits)`` pair or a full config — to a config."""
+    """Resolve one per-bucket plan entry to a config: an int (bit width
+    under ``cfg.method``), a ``("method", value)`` pair (value = rank for
+    rank-based codecs, bits otherwise) or a full config.  Malformed entries
+    raise ``ValueError``."""
     if isinstance(entry, CompressorConfig):
         return entry
     if isinstance(entry, tuple | list):
         if len(entry) != 2 or not isinstance(entry[0], str):
             raise ValueError(f"malformed bits_plan entry {entry!r}: a sequence entry must "
-                             "be a ('method', value) pair")
-        method, value = entry[0], int(entry[1])
-        if method == cfg.method and value == cfg.bits:
+                             "be a ('method', value) pair, e.g. ('tqsgd', 3) or "
+                             "('powersgd', 2)")
+        method, value = entry
+        try:
+            value = int(value)
+        except (TypeError, ValueError):
+            raise ValueError(f"malformed bits_plan entry {entry!r}: value must be an int "
+                             "(rank for rank-based codecs, bits otherwise)") from None
+        field = "rank" if get_codec(method).rank_based else "bits"
+        if method == cfg.method and value == getattr(cfg, field):
             return cfg
-        return dataclasses.replace(cfg, method=method, bits=value)
-    entry = int(entry)
+        return dataclasses.replace(cfg, method=method, **{field: value})
+    try:
+        entry = int(entry)
+    except (TypeError, ValueError):
+        raise ValueError(f"malformed bits_plan entry {entry!r}: expected an int bit width, "
+                         "a ('method', value) pair, or a CompressorConfig") from None
     return cfg if entry == cfg.bits else dataclasses.replace(cfg, bits=entry)
 
 

@@ -17,7 +17,7 @@ from .quantizers import QuantMeta, num_levels, packed_size, uniform_levels
 
 METHODS = ("dsgd", "qsgd", "nqsgd", "tqsgd", "tnqsgd", "tbqsgd")
 #: registered in the JAX package but not ported yet (ROADMAP Queue 1)
-_UNPORTED_CODECS = {"powersgd": "item 10", "fp16": "item 4"}
+_UNPORTED_CODECS = {"fp16": "item 4"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +38,12 @@ class CompressorConfig:
                 f"method {self.method!r} is not ported yet "
                 f"(ROADMAP Queue 1 {_UNPORTED_CODECS[self.method]})")
         if self.method not in METHODS:
-            raise ValueError(f"unknown method {self.method!r}; expected one of {METHODS}")
+            # registered codec families beyond the built-in quantizers
+            from .codecs import known_methods
+
+            if self.method not in known_methods():
+                raise ValueError(
+                    f"unknown method {self.method!r}; expected one of {known_methods()}")
         if not (1 <= self.bits <= 8):
             raise ValueError("bits must be in [1, 8]")
         if not (1 <= self.rank <= 64):
@@ -81,20 +86,36 @@ def plan_from_stats(
     return QuantMeta(levels=levels.to(torch.float32), alpha=alpha.to(torch.float32))
 
 
+def _is_plan_entry(entry) -> bool:
+    """A per-bucket ``("method", value)`` plan pair (vs a bits list)."""
+    return isinstance(entry, list | tuple) and len(entry) == 2 and isinstance(entry[0], str)
+
+
 def wire_bytes(cfg: CompressorConfig, n_elements, bits=None) -> int:
     """Bytes on the wire for one tensor: the packed payload plus the s+1
     fp32 levels and the fp32 alpha.  ``n_elements`` may be a list of bucket
-    sizes, optionally with a matching list of per-bucket ``bits``."""
+    sizes, optionally with a matching list of per-bucket ``bits``; a
+    per-bucket entry may also be a ``("method", value)`` pair or a full
+    config (``core.codecs.bucket_cfg_entry``), and a registered codec
+    outside the quantizers (``powersgd``) accounts its own wire."""
     if isinstance(n_elements, list | tuple):
-        if isinstance(bits, list | tuple):
+        if isinstance(bits, list | tuple) and not _is_plan_entry(bits):
             if len(bits) != len(n_elements):
                 raise ValueError(f"{len(bits)} bit-widths vs {len(n_elements)} buckets")
             return sum(wire_bytes(cfg, n, b) for n, b in zip(n_elements, bits))
         return sum(wire_bytes(cfg, n, bits) for n in n_elements)
+    if _is_plan_entry(bits) or isinstance(bits, CompressorConfig):
+        from .codecs import bucket_cfg_entry
+
+        return wire_bytes(bucket_cfg_entry(cfg, bits), n_elements)
     if isinstance(bits, list | tuple):
         raise ValueError("per-bucket bits need a matching list of bucket sizes")
     if cfg.method == "dsgd":
         return 4 * n_elements
+    if cfg.method not in METHODS:
+        from .codecs import get_codec
+
+        return get_codec(cfg.method).wire_bytes(cfg, n_elements)
     b = cfg.bits if bits is None else int(bits)
     if not (1 <= b <= 8):
         raise ValueError("bits must be in [1, 8]")

@@ -11,16 +11,19 @@ peer axis on one device.
 - two_phase: each peer encodes its bucket as n chunk wires; chunk j of
   every peer is decoded into mean chunk j (the all-to-all reduce-scatter),
   which is planned afresh, re-encoded and decoded row by row into the full
-  mean (the all-gather);
+  mean (the all-gather).  A codec that is not chunkable (``powersgd``)
+  ships its full wire instead, and every peer's is decoded in phase 1;
 - hierarchical: two_phase inside each pod, then faithful across the pod
-  means.
+  means, with no codec aux (a cold PowerSGD start).
 
-On the card every step runs the port's CUDA kernels; on the CPU their
-plain versions.  Ported: these three modes for the quantizer codecs, with
-error feedback on and off, and the uncompressed ``dsgd`` mean.  Still to
-port: the per-leaf codec (``bucket_mb=0``, ROADMAP Queue 1 item 8),
-adaptive telemetry state (item 9), elastic live masks (item 11) and
-compression metrics (item 12).
+An EF row is the residual followed by the codec's aux tail (``powersgd``:
+the warm-started Q factor; none for the quantizers).  On the card every
+step runs the port's CUDA kernels; on the CPU their plain versions.
+Ported: these three modes for the quantizer codecs and ``powersgd``, with
+error feedback on and off, mixed per-bucket plans, and the uncompressed
+``dsgd`` mean.  Still to port: the per-leaf codec (``bucket_mb=0``,
+ROADMAP Queue 1 item 8), adaptive telemetry state (item 9), elastic live
+masks (item 11) and compression metrics (item 12).
 """
 from __future__ import annotations
 
@@ -43,6 +46,16 @@ def _peer_stats(buckets: list, stats: list | None) -> list:
             for i in range(n)]
 
 
+def _state_row(resid: torch.Tensor, aux_new) -> torch.Tensor:
+    """One bucket's EF row: the residual plus any codec aux tail."""
+    return resid if aux_new is None else torch.cat([resid, aux_new])
+
+
+def _peer_aux(aux: list | None, b: int, i: int):
+    """Peer i's aux tail of bucket b, or None."""
+    return aux[b][i] if aux is not None and aux[b] is not None else None
+
+
 def _in_keys(key, n: int) -> list:
     """Per-peer incoming keys: one key for every peer, or the per-peer list
     the hierarchical intra-pod stage hands in, already folded."""
@@ -51,14 +64,15 @@ def _in_keys(key, n: int) -> list:
 
 def bucketed_faithful_ring_mean(
     cfg: CompressorConfig, buckets: list, key,
-    bits: Sequence | None = None, stats: list | None = None,
+    bits: Sequence | None = None, stats: list | None = None, aux: list | None = None,
 ) -> tuple[list, list]:
     """Faithful ring mean over stacked (n, m_b) buckets.
 
     Peer i encodes bucket b under ``fold_in(fold_in(key_i, i), b)`` (the
-    per-peer fold only when n > 1).  Returns ``(mean_buckets,
-    state_stacked)`` with ``state_stacked[b]`` the (n, m_b) per-peer EF
-    residual rows.
+    per-peer fold only when n > 1); ``aux[b]`` (optional) stacks the
+    peers' codec aux tails (n, extra_b).  Returns ``(mean_buckets,
+    state_stacked)`` with ``state_stacked[b]`` the (n, m_b + extra_b)
+    per-peer EF rows (residual, then the new aux).
     """
     n = buckets[0].shape[0]
     keys = _in_keys(key, n)
@@ -72,9 +86,10 @@ def bucketed_faithful_ring_mean(
         for i in range(n):
             flat = sb[i].to(torch.float32)
             pln = codecs[b].plan(cfgs[b], flat, stats[i][b])
-            w, r = codecs[b].encode_residual(cfgs[b], flat, pln, prng.fold_in(keys[i], b))
+            w, r, a = codecs[b].encode_residual(cfgs[b], flat, pln, prng.fold_in(keys[i], b),
+                                                _peer_aux(aux, b, i))
             wires.append(w)
-            rows.append(r)
+            rows.append(_state_row(r, a))
         states.append(torch.stack(rows))
         means.append(codecs[b].decode_reduce(cfgs[b], torch.stack(wires), sb.shape[1]))
     return means, states
@@ -82,37 +97,51 @@ def bucketed_faithful_ring_mean(
 
 def bucketed_two_phase_mean(
     cfg: CompressorConfig, buckets: list, key,
-    bits: Sequence | None = None, stats: list | None = None,
+    bits: Sequence | None = None, stats: list | None = None, aux: list | None = None,
 ) -> tuple[list, list]:
     """Two-phase mean over stacked (n, m_b) buckets.
 
     Peer i's incoming key is folded by i and split: ``[0]`` folded by b
     keys its phase-1 chunk encode of bucket b, ``[1]`` folded by b its
     phase-2 re-encode of mean chunk i.  The phase-2 plans come from each
-    mean chunk's own statistics.  Returns ``(mean_buckets,
-    state_stacked)``; the EF rows are the phase-1 residuals.
+    mean chunk's own statistics.  A bucket whose codec is not chunkable
+    is encoded whole with its aux tail (``aux`` as in
+    :func:`bucketed_faithful_ring_mean`) and every peer's wire decoded in
+    phase 1, with no phase 2.  Returns ``(mean_buckets, state_stacked)``;
+    the EF rows are the phase-1 residuals and aux tails.
     """
     n = buckets[0].shape[0]
     cfgs = bucket_cfgs(cfg, len(buckets), bits)
     codecs = [get_codec(c.method) for c in cfgs]
     if n == 1:
         flats = [sb[0].to(torch.float32) for sb in buckets]
-        return flats, [torch.zeros_like(f)[None] for f in flats]
+        return flats, [_state_row(torch.zeros_like(f), _peer_aux(aux, b, 0))[None]
+                       for b, f in enumerate(flats)]
     keys = [prng.split(prng.fold_in(k, j)) for j, k in enumerate(_in_keys(key, n))]
     stats = _peer_stats(buckets, stats)
     means, states = [], []
     for b, sb in enumerate(buckets):
         size = sb.shape[1]
-        chunk_rows, rows = [], []
+        wires, rows = [], []
         for i in range(n):
             flat = sb[i].to(torch.float32)
             pln = codecs[b].plan(cfgs[b], flat, stats[i][b])
-            w, r = codecs[b].encode_chunks(cfgs[b], flat, pln, prng.fold_in(keys[i][0], b), n)
-            chunk_rows.append(w)
-            rows.append(r)
+            ki = prng.fold_in(keys[i][0], b)
+            if codecs[b].chunkable:
+                w, r = codecs[b].encode_chunks(cfgs[b], flat, pln, ki, n)
+                a = None
+            else:
+                w, r, a = codecs[b].encode_residual(cfgs[b], flat, pln, ki, _peer_aux(aux, b, i))
+            wires.append(w)
+            rows.append(_state_row(r, a))
         states.append(torch.stack(rows))
+        if not codecs[b].chunkable:
+            # the full wire in every all-to-all row is an all-gather: every
+            # peer decodes the same stacked wires into the full mean
+            means.append(codecs[b].decode_reduce(cfgs[b], torch.stack(wires), size))
+            continue
         mc = codecs[b].chunk_elems(cfgs[b], size, n)
-        chunks = [codecs[b].decode_reduce(cfgs[b], torch.stack([w[j] for w in chunk_rows]), mc)
+        chunks = [codecs[b].decode_reduce(cfgs[b], torch.stack([w[j] for w in wires]), mc)
                   for j in range(n)]
         wires2 = [codecs[b].encode(cfgs[b], chunks[j], codecs[b].plan(cfgs[b], chunks[j], None),
                                    prng.fold_in(keys[j][1], b))
@@ -124,14 +153,15 @@ def bucketed_two_phase_mean(
 
 def bucketed_hierarchical_mean(
     cfg: CompressorConfig, buckets: list, n_pod: int, key: torch.Tensor,
-    bits: Sequence | None = None, stats: list | None = None,
+    bits: Sequence | None = None, stats: list | None = None, aux: list | None = None,
 ) -> tuple[list, list]:
     """Two-phase inside each pod, faithful across the pod means.
 
     With ``k1, k2 = split(key)``, peer d of pod p enters its pod's
     two-phase stage with ``fold_in(k1, p·nd + d)`` (the full dp index); the
     cross-pod faithful stage gets ``k2`` and plans from the pod means' own
-    statistics.  The EF rows are the intra-pod stage's.
+    statistics, with no codec aux.  The EF rows (residuals and aux tails)
+    are the intra-pod stage's: pod p gets the aux rows of its own peers.
     """
     n = buckets[0].shape[0]
     nd = n // n_pod
@@ -140,8 +170,10 @@ def bucketed_hierarchical_mean(
     pod_means, pod_resids = [], []
     for p in range(n_pod):
         in_keys = [prng.fold_in(k1, p * nd + d) for d in range(nd)]
+        aux_p = None if aux is None else [a if a is None else a[p * nd:(p + 1) * nd]
+                                          for a in aux]
         m, r = bucketed_two_phase_mean(cfg, [sb[p * nd:(p + 1) * nd] for sb in buckets],
-                                       in_keys, bits, stats[p * nd:(p + 1) * nd])
+                                       in_keys, bits, stats[p * nd:(p + 1) * nd], aux_p)
         pod_means.append(m)
         pod_resids.append(r)
     stacked = [torch.stack([pod_means[p][b] for p in range(n_pod)]) for b in range(len(buckets))]
@@ -177,6 +209,13 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     per_peer = [compressors.bucket_concat([x[j] for x in stacked_leaves], bp) for j in range(n)]
     compressed = not (ts.sync == "dsgd" or cfg.method == "dsgd")
     bits = size_adaptive_plan(cfg, ts.bits_plan, bp.sizes, ts.fp16_threshold)
+    # split each EF row into the residual and the codec's aux tail
+    extras = [get_codec(c.method).state_extra(c, m)
+              for c, m in zip(bucket_cfgs(cfg, bp.n_buckets, bits), bp.sizes)]
+    aux = None
+    if ef is not None and any(extras):
+        aux = [ef[b][:, bp.sizes[b]:] if x else None for b, x in enumerate(extras)]
+        ef = [ef[b][:, :bp.sizes[b]] if x else ef[b] for b, x in enumerate(extras)]
     stats = None
     if compressed:
         stats = []
@@ -192,11 +231,11 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     if not compressed:
         means, resids = [torch.mean(sb, dim=0) for sb in buckets], None
     elif ts.sync == "faithful":
-        means, resids = bucketed_faithful_ring_mean(cfg, buckets, key, bits, stats)
+        means, resids = bucketed_faithful_ring_mean(cfg, buckets, key, bits, stats, aux)
     elif ts.sync == "two_phase" or len(dp_sizes) == 1:
-        means, resids = bucketed_two_phase_mean(cfg, buckets, key, bits, stats)
+        means, resids = bucketed_two_phase_mean(cfg, buckets, key, bits, stats, aux)
     else:
-        means, resids = bucketed_hierarchical_mean(cfg, buckets, n_pod, key, bits, stats)
+        means, resids = bucketed_hierarchical_mean(cfg, buckets, n_pod, key, bits, stats, aux)
     if not ts.error_feedback:
         resids = None
     return compressors.bucket_split(means, bp, shapes), resids, None, None

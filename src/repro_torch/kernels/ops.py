@@ -19,6 +19,7 @@ from repro_torch.core.quantizers import packed_size
 
 from . import decode as _d
 from . import encode_fused as _e
+from . import orthogonalize as _o
 from . import ref
 from . import stats as _s
 
@@ -179,3 +180,10 @@ def uniform_decode_rows(words: torch.Tensor, alphas: torch.Tensor, n: int,
     out = _decode(_d.uniform_decode_rows_3d, ref.uniform_decode_rows, words, _f32(alphas),
                   n, bits)
     return out.reshape(words.shape[0], -1)[:, :n]
+
+
+def orthogonalize(p: torch.Tensor) -> torch.Tensor:
+    """Gram–Schmidt orthonormalization of a tall-skinny (rows, r) factor
+    (K11): PowerSGD's ``P̂ = orth(M @ Q)``."""
+    p = _f32(p)
+    return _o.orthogonalize_2d(p) if _on_card(p) else ref.orthogonalize(p)

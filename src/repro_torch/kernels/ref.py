@@ -20,10 +20,11 @@ import torch
 from repro_torch.core.quantizers import pack_codes, unpack_codes
 
 from . import stats as S
+from .orthogonalize import EPS as GS_EPS
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    return x / x.new_full((), d)
 
 
 def bucket_stats(g2: torch.Tensor, n: int) -> torch.Tensor:
@@ -188,3 +189,24 @@ def codebook_decode_rows(words3: torch.Tensor, levels2: torch.Tensor, bits: int)
 def uniform_decode_rows(words3: torch.Tensor, alphas: torch.Tensor, bits: int) -> torch.Tensor:
     """(peers, rows, 4·bits) + (peers,) α -> (peers, rows, 128) ``code·2α_p/s − α_p``."""
     return _rows(_uniform_vals, words3, alphas, bits)
+
+
+def orthogonalize(p: torch.Tensor) -> torch.Tensor:
+    """(rows, r) fp32 factor -> the same shape with its columns
+    orthonormalized: ``orthogonalize._gs_padded`` op for op — modified
+    Gram–Schmidt with one reorthogonalization pass per pivot, each pivot
+    scaled by ``1/sqrt(max(v·v, 1e-30))``, so a zero column stays zero.
+    The sums run in another order than the kernel's."""
+    cols = []
+    rest = p
+    for _ in range(p.shape[1]):
+        v = rest[:, 0:1]
+        for u in cols:
+            v = v - torch.sum(u * v) * u
+        nrm = torch.sum(v * v)
+        v = v * (torch.ones_like(nrm) / torch.sqrt(torch.clamp_min(nrm, GS_EPS)))
+        cols.append(v)
+        rest = rest[:, 1:]
+        if rest.shape[1]:
+            rest = rest - torch.sum(v * rest, dim=0, keepdim=True) * v
+    return torch.cat(cols, dim=1)

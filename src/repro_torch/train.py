@@ -53,7 +53,9 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     """Fixed-seed synced training; returns the per-step mean client loss.
 
     ``dp_sizes`` lays the clients out as (pods…, data), row-major, for the
-    hierarchical sync (default ``(n_clients,)``: one pod).
+    hierarchical sync (default ``(n_clients,)``: one pod).  ``method="powersgd"``
+    runs at ``CompressorConfig``'s rank 4, and its EF rows also carry the
+    warm-started Q factor (``bucket_state_sizes``).
 
     Seeds follow the JAX run: ``key(0)`` for the init, ``key(42)`` for the
     class templates and ``fold_in(key(0x5EED), i)`` for step i's sync.  TF32 is

@@ -9,7 +9,9 @@ bitwise (the kernels are built with ``-fmad=false`` and IEEE division, so
 the uniform dequant rounds as the plain version's separate ops do); K1/K10
 counts and max exact, the ln and moment sums within rtol 1e-5 (of each
 bin's sum, and of Σ|x| for the signed sum), and bitwise equal across two
-launches.
+launches; K11 within rtol 1e-5 / atol 1e-6 of its plain version (the
+sums run in another order), exact zeros for zero columns, and bitwise
+equal across two launches.
 """
 import pytest
 
@@ -17,11 +19,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import decode, encode_fused, ops, ref, stats  # noqa: E402
+from repro_torch.kernels import decode, encode_fused, ops, orthogonalize, ref, stats  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 SIZES = [999, 64 * 128 * 2 + 17, 70_000]
 RTOL = 1e-5
+# tests/test_lowrank.py's shapes, then smallnet's and a full 4 MB bucket's P
+# factor (809 and 1,024 rows) at rank 4, the rank cap 64 and rank 1
+GS_SHAPES = [(8, 4), (128, 8), (1000, 3), (7, 7), (513, 16), (809, 4), (1024, 4), (1024, 64),
+             (809, 1)]
 
 
 @pytest.fixture
@@ -131,6 +137,7 @@ def test_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.uniform_decode_reduce(uw[None], a.reshape(1), 5000, 3)
     ops.uniform_decode_rows(uw[None], a.reshape(1), 5000, 3)
     ops.codebook_decode_rows(words[None], lv[None], 5000, 3)
+    ops.orthogonalize(torch.randn(809, 4, device=cuda))
     assert kernels.launch_counts() == {k.__name__: 1 for k in kernels.KERNELS}
     with pytest.raises(ValueError):
         stats.bucket_stats_2d(torch.zeros((4, 64), device=cuda), 10)
@@ -145,6 +152,47 @@ def test_wrappers_count_launches_and_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         decode.uniform_decode_rows_3d(torch.zeros((2, 4, 12), dtype=torch.int32, device=cuda),
                                       torch.zeros(3, device=cuda), 3)
+
+
+@pytest.mark.parametrize("shape", GS_SHAPES)
+def test_orthogonalize_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] * 100 + shape[1])
+    p = torch.randn(*shape, generator=gen, device=cuda)
+    out = orthogonalize.orthogonalize_2d(p)
+    assert torch.equal(orthogonalize.orthogonalize_2d(p), out)
+    torch.testing.assert_close(out, ref.orthogonalize(p), rtol=RTOL, atol=1e-6)
+
+
+def test_orthogonalize_kernel_zero_and_dependent_columns(cuda):
+    p = torch.zeros((64, 4), device=cuda)
+    p[:, 0] = 1.0
+    q = ops.orthogonalize(p)
+    assert bool((q[:, 1:] == 0).all()) and torch.equal(q[:, 0], torch.full((64,), 0.125, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = torch.randn(809, 4, generator=gen, device=cuda)
+    p[:, 2] = 0.5 * p[:, 0] + 2.0 * p[:, 1]
+    p[:, 3] = p[:, 1]
+    q, want = ops.orthogonalize(p), ref.orthogonalize(p)
+    scale = float(p.abs().max())
+    for x in (q, want):
+        torch.testing.assert_close(x.T @ x, torch.eye(4, device=cuda), rtol=0, atol=1e-5)
+        torch.testing.assert_close(x @ (x.T @ p), p, rtol=0, atol=1e-5 * scale)
+
+
+def test_orthogonalize_counts_launches_and_rejects_bad_operands(cuda):
+    kernels.reset_launch_counts()
+    ops.orthogonalize(torch.randn(100, 4, device=cuda))
+    assert kernels.launch_counts()["orthogonalize_2d"] == 1
+    for bad in (torch.zeros((16, 65), device=cuda),                       # rank above 64
+                torch.zeros((16, 0), device=cuda),                        # rank 0
+                torch.zeros((0, 4), device=cuda),                         # no rows
+                torch.zeros(16, device=cuda),                             # not 2-D
+                torch.zeros((16, 4), device=cuda).double(),               # dtype
+                torch.zeros((4, 16), device=cuda).T,                      # not contiguous
+                torch.zeros((16, 4))):                                    # not on the card
+        with pytest.raises(ValueError):
+            orthogonalize.orthogonalize_2d(bad)
+    assert kernels.launch_counts()["orthogonalize_2d"] == 1
 
 
 def test_synced_training_runs_through_the_kernels(cuda):
@@ -168,3 +216,14 @@ def test_two_phase_tqsgd_runs_through_the_uniform_kernels(cuda):
     assert counts["uniform_encode_pack_resid_2d"] == 8 and counts["uniform_decode_reduce_3d"] == 8
     assert counts["uniform_encode_pack_2d"] == 8 and counts["uniform_decode_rows_3d"] == 1
     assert counts["bucket_stats_2d"] == 16
+
+
+def test_powersgd_training_runs_through_k11(cuda):
+    from repro_torch.train import train_synced
+
+    kernels.reset_launch_counts()
+    hist = train_synced(method="powersgd", error_feedback=True, steps=2, device="cuda")
+    counts = kernels.launch_counts()
+    assert len(hist) == 2 and all(h == h for h in hist)
+    assert counts["ef_correct_stats_2d"] == 16 and counts["orthogonalize_2d"] == 16
+    assert sum(counts.values()) == 32

@@ -6,8 +6,13 @@ package pins no tqsgd window; its faithful tqsgd run, under the original
 threefry layout the port draws in, ends at 0.01793 (``_run("faithful",
 "tqsgd", False, (8,))`` on the CPU, JAX 0.9.0 with
 ``jax_threefry_partitionable`` off), held here with the pinned windows'
-tolerance.  Every run must also converge as the JAX test demands,
-``hist[-1] < hist[0] - 5``.
+tolerance.  The faithful PowerSGD run (rank 4, error feedback on, the
+warm-started Q carried in the EF rows) is held to the JAX package's
+powersgd window, 0.0110 ± 0.05; under the original layout JAX's own run
+ends at 0.011024 (two_phase (8,) the same: a non-chunkable codec decodes
+every peer's full wire in phase 1) and hierarchical (2, 4) at 0.136193
+(``_run(sync, "powersgd", True, dp)`` on the CPU).  Every run must also
+converge as the JAX test demands, ``hist[-1] < hist[0] - 5``.
 """
 import pytest
 
@@ -20,13 +25,16 @@ GOLDEN = {
     "two_phase": (dict(sync="two_phase"), 0.0037, 0.05),
     "hierarchical": (dict(sync="hierarchical", dp_sizes=(2, 4)), 0.0207, 0.05),
     "faithful_tqsgd": (dict(sync="faithful", method="tqsgd"), 0.0179, 0.05),
+    "faithful_powersgd": (dict(sync="faithful", method="powersgd", error_feedback=True),
+                          0.0110, 0.05),
 }
 
 
 @pytest.mark.parametrize("case", list(GOLDEN))
 def test_golden_run_on_cpu(case):
     kw, want, tol = GOLDEN[case]
-    hist = train.train_synced(bits=3, error_feedback=False, steps=30, device="cpu", **kw)
+    hist = train.train_synced(**{"bits": 3, "error_feedback": False, "steps": 30,
+                                 "device": "cpu", **kw})
     assert len(hist) == 30
     assert hist[0] == pytest.approx(6.4895, abs=1e-3), hist
     assert abs(hist[-1] - want) <= tol, hist
