@@ -7,7 +7,7 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
 1. card: print ``nvidia-smi``'s name and power limit, require CUDA;
 2. build: compile every kernel of the main path from ``csrc/`` and print
    the ``-Xptxas -v`` register and shared-memory report;
-3. kernel parity: each of the eleven kernels against its plain PyTorch
+3. kernel parity: each of the seventeen kernels against its plain PyTorch
    version on the card on identical inputs.  K1-K10 at smallnet's bucket
    (206,922 elements), a full 4 MB bucket (1,048,576) and a ragged size, 8
    peers, 1, 3 and 8 bits, and at 3 bits at every shape and peer count the
@@ -15,22 +15,33 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    and of a (2, 4) pod, and the 2-peer cross-pod stage); K11 at the P
    factors of smallnet's bucket (809 rows) and of a 4 MB bucket (1,024),
    ranks 1, 3, 4 and 64, a rank-deficient factor (by reconstruction) and a
-   zero column;
+   zero column; K12-K17 bitwise at a 4 MB tensor and at each of smallnet's
+   eight leaf sizes (10 to 200,704 elements), 2, 3 and 8 bits, with the
+   per-tensor plan's α and levels, on the padded tile and through their
+   ``kernels.ops`` wrappers;
 4. main path: the paper's 8-client smallnet training through
    ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
    faithful tqsgd and qsgd, two_phase tqsgd; PowerSGD at rank 4 with EF
    in the faithful, two_phase (8,) and hierarchical (2, 4) modes; each
    EF-on run twice to show it repeats bit for bit.  Each run is held to the
-   JAX package's golden window (or its own value under the original
-   threefry layout, or convergence), and every kernel's launch count, read
-   around each run, to the count its sync mode implies.  Then one synced
-   step of the mixed plan (tnqsgd 3 bits, powersgd rank 4, tnqsgd 2 bits
-   over three buckets) on the card, held against the same step on the CPU;
-5. times: K1-K10 and their plain versions at the 4 MB x 8-peer shape, K11
-   at smallnet's and a 4 MB bucket's P factor beside torch.linalg.qr,
-   each beside its byte bound, the phase-2 kernels at their chunk shape,
-   and one synced step's wall time per sync mode and method.
+   JAX package's golden window after 30 steps (or its own value under the
+   original threefry layout), or to convergence after 15 steps, and every
+   kernel's launch count, read around each run, to the count its sync mode
+   implies.  Then the paper's
+   per-tensor loop through ``repro_torch.train.train_clients`` with
+   ``use_pallas`` (tnqsgd, tqsgd, and tnqsgd with EF; 30 rounds), each run
+   twice and held bit for bit, to 1,920 launches of K14 or K12 and none of
+   any other kernel, and to the JAX package's final loss within ± 0.05.
+   Then one synced step of the mixed plan (tnqsgd 3 bits, powersgd rank 4,
+   tnqsgd 2 bits over three buckets) on the card, held against the same
+   step on the CPU;
+5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
+   (x 8 peers) shape, K11 at smallnet's and a 4 MB bucket's P factor
+   beside torch.linalg.qr, each beside its byte bound, K12/K14 at
+   smallnet's fc1.w, the phase-2 kernels at their chunk shape, one synced
+   step's wall time per sync mode and method, and one per-tensor round's
+   compression phase by phase.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -51,9 +62,25 @@ PEERS = 8
 SLICE_N = 206_922                  # smallnet's parameters: one bucket
 FULL_N = 1_048_576                 # one full 4 MB bucket (bucket_mb=4.0)
 RAGGED_N = 100_003                 # not a multiple of 32
+FC1_N = 200_704                    # smallnet's largest leaf, fc1.w
 FP32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 STATS_RTOL = 1e-5
 GS_RTOL, GS_ATOL = 1e-5, 1e-6      # K11 against its plain version (another sum order)
+# The JAX package's per-tensor runs (benchmarks/common.py::train_clients,
+# 8 clients, batch 32, 30 rounds, 3 bits, CompressorConfig bound to
+# use_pallas=True, the original threefry layout, on the CPU): label ->
+# (train_clients keywords, (final loss, accuracy on 2,048), the encode kernel)
+JAX_PER_TENSOR = {
+    "per_tensor_tnqsgd": (dict(method="tnqsgd"), (0.0008406252600252628, 0.99462890625),
+                          "quantize.codebook_encode_2d"),
+    "per_tensor_tqsgd": (dict(method="tqsgd"), (0.0013530668802559376, 0.994140625),
+                         "quantize.uniform_encode_2d"),
+    "per_tensor_tnqsgd_ef": (dict(method="tnqsgd", error_feedback=True),
+                             (0.0018120473250746727, 0.99462890625),
+                             "quantize.codebook_encode_2d"),
+}
+OPS_ONLY = ("quantize.uniform_decode_2d", "quantize.codebook_decode_2d",
+            "quantize.uniform_encode_pack_2d", "quantize.codebook_encode_pack_2d")
 # smallnet's gradient leaves, in jax.tree.leaves order
 SMALLNET_SHAPES = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (1568, 128), (10,),
                    (128, 10)]
@@ -114,6 +141,7 @@ def main() -> int:
     from repro_torch.kernels import encode_fused as kenc
     from repro_torch.kernels import ops
     from repro_torch.kernels import orthogonalize as korth
+    from repro_torch.kernels import quantize as kq
     from repro_torch.kernels import stats as kstats
 
     # -- 1. card ----------------------------------------------------------
@@ -149,11 +177,14 @@ def main() -> int:
     def plan_levels(g2: torch.Tensor, n: int, bits: int) -> torch.Tensor:
         return plan(g2, n, bits, "tnqsgd").levels
 
+    def note_err(name: str, err: float) -> None:
+        max_err[name] = max(max_err[name], err)
+
     def agree(name: str, got, want, what: str) -> None:
         """Bitwise agreement of a kernel's output with its plain version."""
         check(got.shape == want.shape and torch.equal(got, want), f"{name} {what} differs")
         if got.dtype == torch.float32:
-            max_err[name] = max(max_err[name], float(torch.abs(got - want).max()))
+            note_err(name, float(torch.abs(got - want).max()))
 
     def stats_err(got, want, x2, n, what):
         check(torch.equal(got[0], want[0]), f"{what}: histogram counts differ")
@@ -166,7 +197,7 @@ def main() -> int:
                   f"{what}: row {row} beyond rtol {STATS_RTOL} (max diff {float(d.max())})")
         return float(torch.abs(got - want).max())
 
-    max_err = {k.__name__: 0.0 for k in kernels.KERNELS}
+    max_err = {kernels.kernel_name(k): 0.0 for k in kernels.KERNELS}
     # (elements, bits, peers): the convention shapes, then the main path's
     # own at 3 bits.  two_phase (8,) encodes smallnet's bucket padded for 8
     # chunks and decodes, re-encodes and row-decodes its chunks over 8
@@ -195,11 +226,11 @@ def main() -> int:
             c2, s1b = kenc.ef_correct_stats_2d(g[p], e[p], n)
             check(torch.equal(c2, c) and torch.equal(s1b, s1), f"K1 not deterministic at n={n}")
             err = stats_err(s10, ref.bucket_stats(g[p], n), g[p], n, f"K10 n={n}")
-            max_err["bucket_stats_2d"] = max(max_err["bucket_stats_2d"], err)
+            note_err("stats.bucket_stats_2d", err)
             c_ref, s1_ref = ref.ef_correct_stats(g[p], e[p], n)
             check(torch.equal(c, c_ref), f"K1 corrected bucket differs at n={n}")
             err = stats_err(s1, s1_ref, c, n, f"K1 n={n}")
-            max_err["ef_correct_stats_2d"] = max(max_err["ef_correct_stats_2d"], err)
+            note_err("encode_fused.ef_correct_stats_2d", err)
             lv = plan_levels(c, n, bits)
             rand = prng.uniform(prng.key(1000 * p + bits), c.shape, device=dev)
             w, r = kenc.codebook_encode_pack_resid_2d(c, rand, lv, n, bits)
@@ -210,17 +241,17 @@ def main() -> int:
             levels.append(lv)
             at = f"n={n} bits={bits}"
             wc = kenc.codebook_encode_pack_2d(c, rand, lv, n, bits)
-            agree("codebook_encode_pack_2d", wc, ref.codebook_encode_pack(c, rand, lv, n, bits),
-                  f"words at {at}")
+            agree("encode_fused.codebook_encode_pack_2d", wc,
+                  ref.codebook_encode_pack(c, rand, lv, n, bits), f"words at {at}")
             check(torch.equal(wc, w), f"K6 words differ from K2's at {at}")
             cwords.append(wc)
             alpha = plan(c, n, bits, "tqsgd").alpha.reshape(1).contiguous()
             uw, ur = kenc.uniform_encode_pack_resid_2d(c, rand, alpha, n, bits)
             uw_ref, ur_ref = ref.uniform_encode_pack_residual(c, rand, alpha, n, bits)
-            agree("uniform_encode_pack_resid_2d", uw, uw_ref, f"words at {at}")
-            agree("uniform_encode_pack_resid_2d", ur, ur_ref, f"residual at {at}")
-            agree("uniform_encode_pack_2d", kenc.uniform_encode_pack_2d(c, rand, alpha, n, bits),
-                  uw_ref, f"words at {at}")
+            agree("encode_fused.uniform_encode_pack_resid_2d", uw, uw_ref, f"words at {at}")
+            agree("encode_fused.uniform_encode_pack_resid_2d", ur, ur_ref, f"residual at {at}")
+            agree("encode_fused.uniform_encode_pack_2d",
+                  kenc.uniform_encode_pack_2d(c, rand, alpha, n, bits), uw_ref, f"words at {at}")
             uwords.append(uw)
             alphas.append(alpha)
         words3 = torch.stack(words).contiguous()
@@ -230,11 +261,13 @@ def main() -> int:
               f"K4 mean differs at n={n} bits={bits}")
         uwords3, alphas1 = torch.stack(uwords).contiguous(), torch.cat(alphas)
         cwords3 = torch.stack(cwords).contiguous()
-        agree("uniform_decode_reduce_3d", kdec.uniform_decode_reduce_3d(uwords3, alphas1, bits),
+        agree("decode.uniform_decode_reduce_3d",
+              kdec.uniform_decode_reduce_3d(uwords3, alphas1, bits),
               ref.uniform_decode_reduce(uwords3, alphas1, bits), f"mean at {at}")
-        agree("uniform_decode_rows_3d", kdec.uniform_decode_rows_3d(uwords3, alphas1, bits),
+        agree("decode.uniform_decode_rows_3d", kdec.uniform_decode_rows_3d(uwords3, alphas1, bits),
               ref.uniform_decode_rows(uwords3, alphas1, bits), f"rows at {at}")
-        agree("codebook_decode_rows_3d", kdec.codebook_decode_rows_3d(cwords3, levels2, bits),
+        agree("decode.codebook_decode_rows_3d",
+              kdec.codebook_decode_rows_3d(cwords3, levels2, bits),
               ref.codebook_decode_rows(cwords3, levels2, bits), f"rows at {at}")
         torch.cuda.synchronize()
         print(f"[parity] n={n} bits={bits} peers={peers}: K1, K10 counts/max exact, sums within "
@@ -256,7 +289,7 @@ def main() -> int:
         d = torch.abs(out - want)
         check(bool((d <= GS_ATOL + GS_RTOL * torch.abs(want)).all()),
               f"K11 beyond rtol {GS_RTOL} / atol {GS_ATOL} at {rows}x{r} (max {float(d.max())})")
-        max_err["orthogonalize_2d"] = max(max_err["orthogonalize_2d"], float(d.max()))
+        note_err("orthogonalize.orthogonalize_2d", float(d.max()))
         print(f"[parity] K11 {rows}x{r}: within rtol {GS_RTOL} / atol {GS_ATOL}, max abs err "
               f"{float(d.max()):.3e}, bitwise deterministic")
     # a rank-deficient factor: its surplus columns are normalized rounding
@@ -280,10 +313,78 @@ def main() -> int:
     print("[parity] K11 zero columns stay exactly zero")
     torch.cuda.synchronize()
 
+    # K12-K17: each kernel on the padded (rows, 128) tile against its plain
+    # version, and each through its kernels.ops wrapper (flat in, the draw
+    # on the padded tile, sliced to n) against the plain version on the
+    # same draw; K16/K17's words against pack_codes of K12/K14's codes.  At
+    # every leaf size of smallnet (each a tile shape the per-tensor path
+    # gives K12/K14) and a full 4 MB tensor, with α and the levels from the
+    # per-tensor plan (compressors.plan) that the path uses.
+    from repro_torch.core import compressors
+    from repro_torch.core.quantizers import pack_codes, packed_size
+
+    Q = {k: f"quantize.{k}" for k in ("uniform_encode_2d", "uniform_decode_2d",
+                                      "codebook_encode_2d", "codebook_decode_2d",
+                                      "uniform_encode_pack_2d", "codebook_encode_pack_2d")}
+    for n in sorted({math.prod(s) for s in SMALLNET_SHAPES} | {FULL_N}):
+        for bits in (2, 3, 8):
+            at = f"n={n} bits={bits}"
+            g = heavy(n, 1e-3)
+            key = prng.key(7 * n + bits)
+            g2, _, rand = ops._draw(g, key)
+            alpha = compressors.plan(CompressorConfig(method="tqsgd", bits=bits), g).alpha
+            alpha = alpha.reshape(1).contiguous()
+            lv = compressors.plan(CompressorConfig(method="tnqsgd", bits=bits), g).levels
+            uc = kq.uniform_encode_2d(g2, rand, alpha, bits)
+            agree(Q["uniform_encode_2d"], uc, ref.uniform_encode(g2, rand, alpha, bits),
+                  f"codes at {at}")
+            cc = kq.codebook_encode_2d(g2, rand, lv)
+            agree(Q["codebook_encode_2d"], cc, ref.codebook_encode(g2, rand, lv), f"codes at {at}")
+            for name, kernel, plain, meta, codes in (
+                    (Q["uniform_encode_pack_2d"], kq.uniform_encode_pack_2d,
+                     ref.uniform_encode_pack_codes, alpha, uc),
+                    (Q["codebook_encode_pack_2d"], kq.codebook_encode_pack_2d,
+                     ref.codebook_encode_pack_codes, lv, cc)):
+                pc, words = kernel(g2, rand, meta, n, bits)
+                want_c, want_w = plain(g2, rand, meta, n, bits)
+                agree(name, pc, want_c, f"codes at {at}")
+                agree(name, words, want_w, f"words at {at}")
+                flat = codes.reshape(-1)[:n]
+                agree(name, words.reshape(-1)[:packed_size(n, bits)], pack_codes(flat, bits),
+                      f"words against pack_codes of the unpacked encode's codes at {at}")
+            agree(Q["uniform_decode_2d"], kq.uniform_decode_2d(uc, alpha, bits),
+                  ref.uniform_decode(uc, alpha, bits), f"values at {at}")
+            agree(Q["codebook_decode_2d"], kq.codebook_decode_2d(cc, lv),
+                  ref.codebook_decode(cc, lv), f"values at {at}")
+            # the ops wrappers on the flat tensor
+            u8 = ops.uniform_encode(g, alpha, bits, key)
+            agree(Q["uniform_encode_2d"], u8, uc.reshape(-1)[:n].to(torch.uint8),
+                  f"ops codes at {at}")
+            c8 = ops.codebook_encode(g, lv, key)
+            agree(Q["codebook_encode_2d"], c8, cc.reshape(-1)[:n].to(torch.uint8),
+                  f"ops codes at {at}")
+            for name, wrap, meta, codes in ((Q["uniform_encode_pack_2d"],
+                                             ops.uniform_encode_packed, alpha, u8),
+                                            (Q["codebook_encode_pack_2d"],
+                                             ops.codebook_encode_packed, lv, c8)):
+                words, pc8 = wrap(g, meta, bits, key)
+                agree(name, pc8, codes, f"ops codes at {at}")
+                agree(name, words, pack_codes(codes, bits), f"ops words at {at}")
+            agree(Q["uniform_decode_2d"], ops.uniform_decode(u8, alpha, bits),
+                  ref.uniform_decode(uc, alpha, bits).reshape(-1)[:n], f"ops values at {at}")
+            agree(Q["codebook_decode_2d"], ops.codebook_decode(c8, lv),
+                  ref.codebook_decode(cc, lv).reshape(-1)[:n], f"ops values at {at}")
+        torch.cuda.synchronize()
+        print(f"[parity] n={n} bits=2, 3, 8: K12, K14 codes, K16, K17 codes and words, K13, K15 "
+              f"values bitwise, on the tile and through kernels.ops; K16/K17 words equal "
+              f"pack_codes of K12/K14's codes")
+
     # -- 4. main path -----------------------------------------------------
     from repro_torch.train import train_synced
 
-    steps = 30
+    # 30 steps for a run held to a window; a run held to convergence alone
+    # (window None) takes 15, enough to fall below 1.49 (about 0.3 there)
+    steps, short = 30, 15
     # label -> (train_synced keywords, window (final loss, tolerance) or None
     # for convergence alone, launches per synced step).  Per step, for one
     # bucket and 8 clients: the peers' statistics (K1 with EF, else K10) and
@@ -292,36 +393,38 @@ def main() -> int:
     # (K10), re-encodes them (K6|K7) and decodes the rows once (K8|K9);
     # hierarchical (2, 4) runs that in two pods of 4 (K8|K9 twice), then
     # plans (K10), encodes (K2|K3) and decodes (K4|K5) the 2 pod means.
+    K1, K10, K11 = ("encode_fused.ef_correct_stats_2d", "stats.bucket_stats_2d",
+                    "orthogonalize.orthogonalize_2d")
+
     def expected_launches(stats, enc, dec, enc2=0, rows=0, uniform=False):
-        k_enc, k_dec, k_enc2, k_rows = (
-            ("uniform_encode_pack_resid_2d", "uniform_decode_reduce_3d", "uniform_encode_pack_2d",
-             "uniform_decode_rows_3d") if uniform else
-            ("codebook_encode_pack_resid_2d", "codebook_decode_reduce_3d",
-             "codebook_encode_pack_2d", "codebook_decode_rows_3d"))
+        kind = "uniform" if uniform else "codebook"
         counts = dict.fromkeys(launches, 0)
-        counts.update({k_enc: enc, k_dec: dec, k_enc2: enc2, k_rows: rows}, **stats)
+        counts.update({f"encode_fused.{kind}_encode_pack_resid_2d": enc,
+                       f"decode.{kind}_decode_reduce_3d": dec,
+                       f"encode_fused.{kind}_encode_pack_2d": enc2,
+                       f"decode.{kind}_decode_rows_3d": rows})
+        counts.update(stats)
         return counts
 
-    launches = {k.__name__: 0 for k in kernels.KERNELS}
-    ef_off, ef_on = {"bucket_stats_2d": 8}, {"ef_correct_stats_2d": 8}
+    launches = {kernels.kernel_name(k): 0 for k in kernels.KERNELS}
+    ef_off, ef_on = {K10: 8}, {K1: 8}
     golden = {
         "faithful_ef_off": (dict(sync="faithful"), (0.0162, 0.05),
                             expected_launches(ef_off, 8, 1)),
         "faithful_ef_on": (dict(sync="faithful", error_feedback=True), None,
                            expected_launches(ef_on, 8, 1)),
         "two_phase_ef_off": (dict(sync="two_phase"), (0.0037, 0.05),
-                             expected_launches({"bucket_stats_2d": 16}, 8, 8, 8, 1)),
+                             expected_launches({K10: 16}, 8, 8, 8, 1)),
         "two_phase_ef_on": (dict(sync="two_phase", error_feedback=True), None,
-                            expected_launches({"ef_correct_stats_2d": 8, "bucket_stats_2d": 8},
-                                              8, 8, 8, 1)),
+                            expected_launches({K1: 8, K10: 8}, 8, 8, 8, 1)),
         "hierarchical_ef_off": (dict(sync="hierarchical", dp_sizes=(2, 4)), (0.0207, 0.05),
-                                expected_launches({"bucket_stats_2d": 18}, 10, 9, 8, 2)),
+                                expected_launches({K10: 18}, 10, 9, 8, 2)),
         "faithful_tqsgd": (dict(sync="faithful", method="tqsgd"), (0.0179, 0.05),
                            expected_launches(ef_off, 8, 1, uniform=True)),
         "faithful_qsgd": (dict(sync="faithful", method="qsgd"), (0.0085, 0.05),
                           expected_launches(ef_off, 8, 1, uniform=True)),
         "two_phase_tqsgd": (dict(sync="two_phase", method="tqsgd"), None,
-                            expected_launches({"bucket_stats_2d": 16}, 8, 8, 8, 1, uniform=True)),
+                            expected_launches({K10: 16}, 8, 8, 8, 1, uniform=True)),
         # PowerSGD, rank 4, EF on: per step K1 and K11 for each of the 8
         # peers; no plan, no quantizer kernel.  two_phase decodes every
         # peer's full wire in phase 1 (not chunkable); hierarchical adds
@@ -330,26 +433,22 @@ def main() -> int:
         # package's; the other two JAX's own runs under the original
         # threefry layout (CPU), with its tolerance.
         "faithful_powersgd": (dict(sync="faithful", method="powersgd", error_feedback=True),
-                              (0.0110, 0.05),
-                              expected_launches({"ef_correct_stats_2d": 8, "orthogonalize_2d": 8},
-                                                0, 0)),
+                              (0.0110, 0.05), expected_launches({K1: 8, K11: 8}, 0, 0)),
         "two_phase_powersgd": (dict(sync="two_phase", method="powersgd", error_feedback=True),
-                               (0.011024, 0.05),
-                               expected_launches({"ef_correct_stats_2d": 8, "orthogonalize_2d": 8},
-                                                 0, 0)),
+                               (0.011024, 0.05), expected_launches({K1: 8, K11: 8}, 0, 0)),
         "hierarchical_powersgd": (dict(sync="hierarchical", dp_sizes=(2, 4), method="powersgd",
                                        error_feedback=True), (0.136193, 0.05),
-                                  expected_launches({"ef_correct_stats_2d": 8,
-                                                     "orthogonalize_2d": 10,
-                                                     "bucket_stats_2d": 2}, 0, 0)),
+                                  expected_launches({K1: 8, K11: 10, K10: 2}, 0, 0)),
     }
     runs = {}
     for label, (kw, window, counts_per_step) in golden.items():
         # the EF-on runs twice: the loss history must repeat bit for bit
+        n_steps = steps if window is not None else short
         for again in ((False, True) if kw.get("error_feedback") else (False,)):
             kernels.reset_launch_counts()
             t0 = time.time()
-            hist = train_synced(bits=3, steps=steps, n_clients=PEERS, batch=32, device="cuda", **kw)
+            hist = train_synced(bits=3, steps=n_steps, n_clients=PEERS, batch=32, device="cuda",
+                                **kw)
             torch.cuda.synchronize()
             wall = time.time() - t0
             counts = kernels.launch_counts()
@@ -358,7 +457,7 @@ def main() -> int:
                   f"({len(hist)} steps, {wall:.2f} s) launches {json.dumps(counts)}")
             print(f"[golden] {name} losses {json.dumps(hist)}")
             check(all(math.isfinite(x) for x in hist), f"{name}: non-finite loss {hist}")
-            want = {k: v * steps for k, v in counts_per_step.items()}
+            want = {k: v * n_steps for k, v in counts_per_step.items()}
             check(counts == want, f"{name}: launches {counts}, expected {want}")
             if again:
                 check(hist == runs[label]["hist"],
@@ -373,8 +472,52 @@ def main() -> int:
             if window is not None:
                 check(abs(hist[-1] - window[0]) <= window[1],
                       f"{label}: final loss {hist[-1]} outside {window[0]} ± {window[1]}")
+
+    # the paper's per-tensor §V loop (train_clients): 8 clients, batch 32,
+    # 30 rounds, every leaf planned by the sort-based fit and encoded
+    # through K14 (codebook methods) or K12 (uniform) with use_pallas, 8
+    # leaves x 8 clients = 64 launches a round and no other kernel.  Each
+    # run twice: the loss history and accuracy must repeat bit for bit.
+    # Final losses: the JAX package's benchmarks.common.train_clients with
+    # CompressorConfig bound to use_pallas=True under the original threefry
+    # layout, 30 rounds on the CPU (JAX_PER_TENSOR).
+    from repro_torch.train import train_clients
+
+    rounds = 30
+    for label, (kw, (want_loss, want_acc), kernel) in JAX_PER_TENSOR.items():
+        results = []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            acc, hist = train_clients(bits=3, rounds=rounds, use_pallas=True, device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = kernels.launch_counts()
+            results.append((acc, hist))
+            print(f"[golden] {label}: first {hist[0]:.6f} last {hist[-1]:.6f} accuracy {acc:.6f} "
+                  f"({rounds} rounds, {wall:.2f} s) launches {json.dumps(counts)}")
+            print(f"[golden] {label} losses {json.dumps(hist)}")
+            check(all(math.isfinite(x) for x in hist), f"{label}: non-finite loss {hist}")
+            want = dict.fromkeys(launches, 0)
+            want[kernel] = 64 * rounds
+            check(counts == want, f"{label}: launches {counts}, expected {want}")
+        check(results[1] == results[0], f"{label}: history or accuracy differs between two runs")
+        print(f"[golden] {label} repeats bit for bit")
+        acc, hist = results[0]
+        for k, v in counts.items():
+            launches[k] += v
+        runs[label] = dict(hist=hist, counts=counts, wall=wall)
+        check(abs(hist[0] - 6.4895) <= 1e-3, f"{label}: first-round loss {hist[0]}")
+        check(abs(hist[-1] - want_loss) <= 0.05,
+              f"{label}: final loss {hist[-1]} outside the JAX run's {want_loss} ± 0.05")
+        check(abs(acc - want_acc) <= 0.05, f"{label}: accuracy {acc} vs the JAX run's {want_acc}")
+    # K13, K15, K16 and K17 are reached only through kernels.ops (no module
+    # of either package's training calls them): phase 3 launches them
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} never launched on the main path")
+        if k in OPS_ONLY:
+            check(v == 0, f"kernel {k} launched {v} times on the main path")
+        else:
+            check(v > 0, f"kernel {k} never launched on the main path")
 
     # one synced step of a mixed plan, EF on (a random warm-start aux), on
     # the card and then on the CPU with the card's quantizer plans replayed:
@@ -422,8 +565,8 @@ def main() -> int:
     finally:
         kcodecs.QuantizerCodec.plan = orig_plan
     want = dict.fromkeys(launches, 0)
-    want.update(ef_correct_stats_2d=3 * PEERS, codebook_encode_pack_resid_2d=2 * PEERS,
-                codebook_decode_reduce_3d=2, orthogonalize_2d=PEERS)
+    want.update({K1: 3 * PEERS, "encode_fused.codebook_encode_pack_resid_2d": 2 * PEERS,
+                 "decode.codebook_decode_reduce_3d": 2, K11: PEERS})
     check(counts == want, f"mixed plan: launches {counts}, expected {want}")
     for b in (0, 2):
         check(torch.equal(ef_card[b].cpu(), ef_cpu[b]), f"mixed plan: bucket {b} EF rows differ")
@@ -486,23 +629,23 @@ def main() -> int:
     wbytes = rows * 4 * bits * 4
     tile = 8 * 128 * 4
     spec = {
-        "ef_correct_stats_2d": dict(
+        "encode_fused.ef_correct_stats_2d": dict(
             fn=kenc.ef_correct_stats_2d, plain=ref.ef_correct_stats,
             calls=[(fi["g"][p], fi["e"][p], n) for p in range(PEERS)],
             bytes=3 * 4 * n + tile, source="src/repro_torch/kernels/csrc/stats.cu",
             replaces="src/repro/kernels/encode_fused.py:90"),
-        "bucket_stats_2d": dict(
+        "stats.bucket_stats_2d": dict(
             fn=kstats.bucket_stats_2d, plain=ref.bucket_stats,
             calls=[(x, n) for x in fi["g"] + fi["e"] + fi["c"]],
             bytes=4 * n + tile, source="src/repro_torch/kernels/csrc/stats.cu",
             replaces="src/repro/kernels/stats.py:106"),
-        "codebook_encode_pack_resid_2d": dict(
+        "encode_fused.codebook_encode_pack_resid_2d": dict(
             fn=kenc.codebook_encode_pack_resid_2d, plain=ref.codebook_encode_pack_residual,
             calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 * (2**bits) + wbytes + 4 * n,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
             replaces="src/repro/kernels/encode_fused.py:215"),
-        "codebook_decode_reduce_3d": dict(
+        "decode.codebook_decode_reduce_3d": dict(
             fn=kdec.codebook_decode_reduce_3d, plain=ref.codebook_decode_reduce,
             calls=[(fi["words3"].clone(), fi["levels2"], bits) for _ in range(8)],
             bytes=PEERS * wbytes + PEERS * 4 * (2**bits) + 4 * n,
@@ -510,37 +653,37 @@ def main() -> int:
             replaces="src/repro/kernels/decode.py:165"),
     }
     spec.update({
-        "uniform_encode_pack_resid_2d": dict(
+        "encode_fused.uniform_encode_pack_resid_2d": dict(
             fn=kenc.uniform_encode_pack_resid_2d, plain=ref.uniform_encode_pack_residual,
             calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 + wbytes + 4 * n,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
             replaces="src/repro/kernels/encode_fused.py:196"),
-        "uniform_decode_reduce_3d": dict(
+        "decode.uniform_decode_reduce_3d": dict(
             fn=kdec.uniform_decode_reduce_3d, plain=ref.uniform_decode_reduce,
             calls=[(fi["uwords3"].clone(), fi["alphas1"], bits) for _ in range(8)],
             bytes=PEERS * wbytes + PEERS * 4 + 4 * n,
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:159"),
-        "codebook_encode_pack_2d": dict(
+        "encode_fused.codebook_encode_pack_2d": dict(
             fn=kenc.codebook_encode_pack_2d, plain=ref.codebook_encode_pack,
             calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 * (2**bits) + wbytes,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
             replaces="src/repro/kernels/encode_fused.py:206"),
-        "uniform_encode_pack_2d": dict(
+        "encode_fused.uniform_encode_pack_2d": dict(
             fn=kenc.uniform_encode_pack_2d, plain=ref.uniform_encode_pack,
             calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 + wbytes,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
             replaces="src/repro/kernels/encode_fused.py:187"),
-        "codebook_decode_rows_3d": dict(
+        "decode.codebook_decode_rows_3d": dict(
             fn=kdec.codebook_decode_rows_3d, plain=ref.codebook_decode_rows,
             calls=[(fi["words3"].clone(), fi["levels2"], bits) for _ in range(2)],
             bytes=PEERS * wbytes + PEERS * 4 * (2**bits) + PEERS * 4 * n,
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:177"),
-        "uniform_decode_rows_3d": dict(
+        "decode.uniform_decode_rows_3d": dict(
             fn=kdec.uniform_decode_rows_3d, plain=ref.uniform_decode_rows,
             calls=[(fi["uwords3"].clone(), fi["alphas1"], bits) for _ in range(2)],
             bytes=PEERS * wbytes + PEERS * 4 + PEERS * 4 * n,
@@ -551,12 +694,50 @@ def main() -> int:
     # bucket, one per peer; the library yardstick is torch.linalg.qr (Q
     # equals MGS's up to column signs at full column rank).
     gs_p = [torch.randn(809, 4, generator=gen, device=dev) for _ in range(PEERS)]
-    spec["orthogonalize_2d"] = dict(
+    spec["orthogonalize.orthogonalize_2d"] = dict(
         fn=korth.orthogonalize_2d, plain=ref.orthogonalize,
         calls=[(x,) for x in gs_p], bytes=gs_bytes(809, 4), flops=gs_flops(809, 4),
         library=lambda x: torch.linalg.qr(x, mode="reduced"), library_calls=[(x,) for x in gs_p],
         library_name="torch.linalg.qr", source="src/repro_torch/kernels/csrc/orthogonalize.cu",
         replaces="src/repro/kernels/orthogonalize.py:71")
+    # K12-K17 at a 4 MB tensor, on the same 8 corrected buckets, draws and
+    # plans as K2-K7 above; the decodes on the encodes' codes.  The library
+    # yardstick of K15 is torch.take(levels, codes) (its codes as int64,
+    # converted outside the timing); no single PyTorch call computes the
+    # others.
+    qsrc, qpy = "src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py"
+    uc = [kq.uniform_encode_2d(fi["c"][p], rand[p], fi["alphas"][p], bits) for p in range(PEERS)]
+    cc = [kq.codebook_encode_2d(fi["c"][p], rand[p], fi["levels"][p]) for p in range(PEERS)]
+    cc64 = [c.to(torch.int64) for c in cc]
+    lvb = 4 * (2**bits)
+    spec.update({
+        "quantize.uniform_encode_2d": dict(
+            fn=kq.uniform_encode_2d, plain=ref.uniform_encode,
+            calls=[(fi["c"][p], rand[p], fi["alphas"][p], bits) for p in range(PEERS)],
+            bytes=12 * n + 4, source=qsrc, replaces=f"{qpy}:76"),
+        "quantize.uniform_decode_2d": dict(
+            fn=kq.uniform_decode_2d, plain=ref.uniform_decode,
+            calls=[(uc[p], fi["alphas"][p], bits) for p in range(PEERS)],
+            bytes=8 * n + 4, source=qsrc, replaces=f"{qpy}:103"),
+        "quantize.codebook_encode_2d": dict(
+            fn=kq.codebook_encode_2d, plain=ref.codebook_encode,
+            calls=[(fi["c"][p], rand[p], fi["levels"][p]) for p in range(PEERS)],
+            bytes=12 * n + lvb, source=qsrc, replaces=f"{qpy}:130"),
+        "quantize.codebook_decode_2d": dict(
+            fn=kq.codebook_decode_2d, plain=ref.codebook_decode,
+            calls=[(cc[p], fi["levels"][p]) for p in range(PEERS)],
+            bytes=8 * n + lvb, library=lambda c, lv: torch.take(lv, c),
+            library_calls=[(cc64[p], fi["levels"][p]) for p in range(PEERS)],
+            library_name="torch.take", source=qsrc, replaces=f"{qpy}:271"),
+        "quantize.uniform_encode_pack_2d": dict(
+            fn=kq.uniform_encode_pack_2d, plain=ref.uniform_encode_pack_codes,
+            calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
+            bytes=12 * n + 4 + 4 + wbytes, source=qsrc, replaces=f"{qpy}:193"),
+        "quantize.codebook_encode_pack_2d": dict(
+            fn=kq.codebook_encode_pack_2d, plain=ref.codebook_encode_pack_codes,
+            calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
+            bytes=12 * n + lvb + 4 + wbytes, source=qsrc, replaces=f"{qpy}:232"),
+    })
     check(set(spec) == set(launches), "every kernel needs a timing spec")
     per_step = {k: max(r["counts"][k] / len(r["hist"]) for r in runs.values()) for k in launches}
     records = []
@@ -570,8 +751,30 @@ def main() -> int:
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         records.append(rec)
-        print("[time] " + json.dumps(dict(rec, bytes=sp["bytes"], launches_per_step=per_step[name],
+        print("[time] " + json.dumps(dict(rec, bytes=sp["bytes"], x_bound=ms / bound_ms,
+                                          launches_per_step_or_round=per_step[name],
                                           library=sp.get("library_name", "none"), card=card)))
+
+    # K12 and K14 at the per-tensor path's largest leaf, fc1.w (200,704
+    # elements, 1,568 rows), one per client: L2-resident, as right after
+    # the backward pass that wrote the gradient
+    frows = -(-FC1_N // 128)
+    fg = [to2d(heavy(FC1_N, 1e-3)) for _ in range(PEERS)]
+    fr = [prng.uniform(prng.key(100 + p), (frows, 128), device=dev) for p in range(PEERS)]
+    fa = [plan(x, FC1_N, bits, "tqsgd").alpha.reshape(1).contiguous() for x in fg]
+    fl = [plan_levels(x, FC1_N, bits) for x in fg]
+    for name, fn, plain_fn, calls, nbytes in (
+            ("quantize.uniform_encode_2d", kq.uniform_encode_2d, ref.uniform_encode,
+             [(x, r, a, bits) for x, r, a in zip(fg, fr, fa)], 12 * frows * 128 + 4),
+            ("quantize.codebook_encode_2d", kq.codebook_encode_2d, ref.codebook_encode,
+             [(x, r, lv) for x, r, lv in zip(fg, fr, fl)], 12 * frows * 128 + lvb)):
+        ms = graph_ms(fn, calls)
+        b_ms, b_by = bound(nbytes)
+        print("[time] " + json.dumps({
+            "per_tensor_leaf": name, "elements": FC1_N, "rows": frows, "bits": bits, "ms": ms,
+            "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms, "bound_by": b_by,
+            "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_round": per_step[name],
+            "card": card}))
 
     # K11 at a full 4 MB bucket's P factor: matrix_shape(1,048,576) = (1024,
     # 1024), rank 4
@@ -595,22 +798,22 @@ def main() -> int:
     uw3 = [fi["uwords3"][:, j * crows:(j + 1) * crows].contiguous() for j in range(PEERS)]
     cwb = crows * 4 * bits * 4
     chunk_spec = {
-        "codebook_encode_pack_2d": (kenc.codebook_encode_pack_2d,
+        "encode_fused.codebook_encode_pack_2d": (kenc.codebook_encode_pack_2d,
                                     [(c, r, fi["levels"][0], cn, bits) for c, r in chunk],
                                     2 * 4 * cn + 4 * (2**bits) + cwb),
-        "uniform_encode_pack_2d": (kenc.uniform_encode_pack_2d,
+        "encode_fused.uniform_encode_pack_2d": (kenc.uniform_encode_pack_2d,
                                    [(c, r, fi["alphas"][0], cn, bits) for c, r in chunk],
                                    2 * 4 * cn + 4 + cwb),
-        "codebook_decode_reduce_3d": (kdec.codebook_decode_reduce_3d,
+        "decode.codebook_decode_reduce_3d": (kdec.codebook_decode_reduce_3d,
                                       [(w, fi["levels2"], bits) for w in cw3],
                                       PEERS * cwb + PEERS * 4 * (2**bits) + 4 * cn),
-        "uniform_decode_reduce_3d": (kdec.uniform_decode_reduce_3d,
+        "decode.uniform_decode_reduce_3d": (kdec.uniform_decode_reduce_3d,
                                      [(w, fi["alphas1"], bits) for w in uw3],
                                      PEERS * cwb + PEERS * 4 + 4 * cn),
-        "codebook_decode_rows_3d": (kdec.codebook_decode_rows_3d,
+        "decode.codebook_decode_rows_3d": (kdec.codebook_decode_rows_3d,
                                     [(w, fi["levels2"], bits) for w in cw3],
                                     PEERS * cwb + PEERS * 4 * (2**bits) + PEERS * 4 * cn),
-        "uniform_decode_rows_3d": (kdec.uniform_decode_rows_3d,
+        "decode.uniform_decode_rows_3d": (kdec.uniform_decode_rows_3d,
                                    [(w, fi["alphas1"], bits) for w in uw3],
                                    PEERS * cwb + PEERS * 4 + PEERS * 4 * cn),
     }
@@ -706,6 +909,32 @@ def main() -> int:
         "decode_x1": phase(lambda: pcodec.decode_reduce(pcfg, torch.stack(pwires), SLICE_N)),
     }
     print("[time] " + json.dumps({"powersgd_step_breakdown_ms": pbreak, "card": card}))
+
+    # one per-tensor round's compression (train_clients, tnqsgd, 3 bits,
+    # use_pallas): 8 clients x smallnet's 8 leaves, phase by phase
+    tcfg = CompressorConfig(method="tnqsgd", bits=3, use_pallas=True)
+    tleaves = [[heavy(math.prod(s), 1e-3).reshape(s) for s in SMALLNET_SHAPES]
+               for _ in range(PEERS)]
+    tkeys = [[prng.fold_in(prng.key(c), j) for j in range(len(SMALLNET_SHAPES))]
+             for c in range(PEERS)]
+    tmetas = [[compressors.plan(tcfg, x) for x in ls] for ls in tleaves]
+    tcodes = [[ops.codebook_encode(x.reshape(-1), m.levels, k) for x, m, k in zip(ls, ms, ks)]
+              for ls, ms, ks in zip(tleaves, tmetas, tkeys)]
+    twires = [[pack_codes(c8, 3) for c8 in cs] for cs in tcodes]
+    tbreak = {
+        "plan_x64": phase(lambda: [[compressors.plan(tcfg, x) for x in ls] for ls in tleaves], 3),
+        "encode_K14_with_rand_x64": phase(lambda: [
+            [ops.codebook_encode(x.reshape(-1), m.levels, k) for x, m, k in zip(ls, ms, ks)]
+            for ls, ms, ks in zip(tleaves, tmetas, tkeys)], 3),
+        "pack_x64": phase(lambda: [[pack_codes(c8, 3) for c8 in cs] for cs in tcodes], 3),
+        "decode_x64": phase(lambda: [
+            [compressors.decode(tcfg, w, m, tuple(x.shape)) for w, m, x in zip(ws, ms, ls)]
+            for ws, ms, ls in zip(twires, tmetas, tleaves)], 3),
+        "compress_decompress_x64": phase(lambda: [
+            [compressors.compress_decompress(tcfg, x, k) for x, k in zip(ls, ks)]
+            for ls, ks in zip(tleaves, tkeys)], 3),
+    }
+    print("[time] " + json.dumps({"per_tensor_round_breakdown_ms": tbreak, "card": card}))
 
     print(card_line())
     print(json.dumps({"kernels": records}))

@@ -1,9 +1,18 @@
-"""Compressor configuration, histogram-driven plans, wire accounting and
-the bucket planner — the PyTorch port of ``repro.core.compressors``.
+"""Compressor configuration, plans, the per-tensor wire ops, wire
+accounting and the bucket planner — the PyTorch port of
+``repro.core.compressors``.
 
-The port has no ``use_pallas`` switch: the device of the tensors decides.
-A CUDA tensor goes to the hand-written kernels, a CPU tensor to their plain
-PyTorch versions (``repro_torch.kernels.ops``).
+``plan`` fits the per-tensor codebook and α with the sort-based
+statistics pass, ``plan_from_stats`` from the bucketed codec's one-pass
+statistics.  ``encode``/``decode`` are the per-tensor wire ops, and there
+``CompressorConfig.use_pallas`` keeps its JAX meaning: ``True`` draws the
+rounding uniforms on the padded (rows, 128) tile and encodes through
+``kernels.ops.uniform_encode``/``codebook_encode`` (kernels K12/K14 on a
+CUDA tensor, their plain versions on a CPU tensor); ``False`` runs
+``quantizers.stochastic_encode`` in torch ops, drawing one uniform per
+element.  The two streams differ unless n is a multiple of 128.  The
+bucketed codec (``core.codecs``) ignores the flag: there the JAX package's
+two branches are bit-identical, and the device of the tensors decides.
 """
 from __future__ import annotations
 
@@ -12,12 +21,15 @@ import dataclasses
 import torch
 
 from . import distributions as dist
-from . import optimal
-from .quantizers import QuantMeta, num_levels, packed_size, uniform_levels
+from . import optimal, prng
+from .quantizers import (QuantMeta, decode as _decode, num_levels, pack_codes, packed_size,
+                         stochastic_encode, uniform_levels, unpack_codes)
 
 METHODS = ("dsgd", "qsgd", "nqsgd", "tqsgd", "tnqsgd", "tbqsgd")
 #: registered in the JAX package but not ported yet (ROADMAP Queue 1)
 _UNPORTED_CODECS = {"fp16": "item 4"}
+#: methods whose codebook is the uniform grid over [−α, α]
+_UNIFORM = ("qsgd", "tqsgd", "dsgd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +39,7 @@ class CompressorConfig:
     gmin_quantile: float = 0.9     # |g| quantile used as g_min for the tail fit
     hist_bins: int = 128           # empirical-density resolution
     alpha_iters: int = 10          # fixed-point iterations for α
+    use_pallas: bool = False       # per-tensor encode through the K12/K14 kernels
     pack: bool = True              # bit-pack codes into uint32 words on the wire
     plan_sample: int = 65536       # max elements used for the statistics pass
     approx_gmin: bool = False      # histogram quantile for g_min (no full sort)
@@ -54,6 +67,56 @@ class CompressorConfig:
         return num_levels(self.bits)
 
 
+def _plan_from(cfg: CompressorConfig, tail: dist.PowerLawTail, density) -> QuantMeta:
+    """The method's α and codebook from a fitted tail; ``density()`` gives
+    the empirical density and is called only by the non-uniform methods."""
+    if cfg.method == "tqsgd":
+        alpha = optimal.solve_alpha_uniform(tail, cfg.bits, iters=cfg.alpha_iters)
+        levels = uniform_levels(alpha, cfg.bits)
+    elif cfg.method in ("nqsgd", "tnqsgd", "tbqsgd"):
+        dens = density()
+        if cfg.method == "nqsgd":
+            alpha = tail.g_max
+            levels = optimal.nonuniform_codebook(dens, alpha, cfg.bits)
+        elif cfg.method == "tnqsgd":
+            alpha = optimal.solve_alpha_nonuniform(tail, dens, cfg.bits, iters=cfg.alpha_iters)
+            levels = optimal.nonuniform_codebook(dens, alpha, cfg.bits)
+        else:
+            alpha, k = optimal.solve_biscaled(tail, dens, cfg.bits, iters=cfg.alpha_iters)
+            levels = optimal.biscaled_codebook(dens, alpha, k, cfg.bits)
+    else:  # qsgd, dsgd
+        alpha = tail.g_max
+        levels = uniform_levels(alpha, cfg.bits)
+    return QuantMeta(levels=levels.to(torch.float32), alpha=alpha.to(torch.float32))
+
+
+_PLAN_SAMPLE_CHUNKS = 64
+
+
+def _plan_sample(g32: torch.Tensor, sample: int) -> torch.Tensor:
+    """Statistics subsample of a flat fp32 tensor: ``_PLAN_SAMPLE_CHUNKS``
+    contiguous runs at evenly spaced offsets (never more runs than sampled
+    elements), so the sample spreads over the whole tensor."""
+    n = g32.numel()
+    if not sample or n <= sample:
+        return g32
+    chunks = max(min(_PLAN_SAMPLE_CHUNKS, sample), 1)
+    span = n // chunks
+    run = max(min(sample // chunks, span), 1)
+    return g32[: chunks * span].reshape(chunks, span)[:, :run].reshape(-1)
+
+
+def plan(cfg: CompressorConfig, g: torch.Tensor) -> QuantMeta:
+    """The per-tensor plan (codebook + α) for ``g`` from the sort-based
+    statistics pass (Alg. 1 line 6): the power-law tail fit and, for the
+    non-uniform methods, the empirical density, over at most
+    ``plan_sample`` elements (contiguous runs, ``_plan_sample``)."""
+    g32 = _plan_sample(g.reshape(-1).to(torch.float32), cfg.plan_sample)
+    tail = dist.fit_power_law_tail(g32, gmin_quantile=cfg.gmin_quantile,
+                                   approx_quantile=cfg.approx_gmin)
+    return _plan_from(cfg, tail, lambda: dist.fit_empirical_density(g32, num_bins=cfg.hist_bins))
+
+
 def plan_from_stats(
     cfg: CompressorConfig,
     counts: torch.Tensor,
@@ -68,22 +131,66 @@ def plan_from_stats(
     edges = bin_edges(counts.device)
     tail = dist.tail_from_histogram(counts, log_sums, g_max, edges,
                                     gmin_quantile=cfg.gmin_quantile)
-    if cfg.method in ("qsgd", "dsgd"):
-        alpha = tail.g_max
-        levels = uniform_levels(alpha, cfg.bits)
-    elif cfg.method == "tqsgd":
-        alpha = optimal.solve_alpha_uniform(tail, cfg.bits, iters=cfg.alpha_iters)
-        levels = uniform_levels(alpha, cfg.bits)
-    elif cfg.method == "tbqsgd":
-        raise NotImplementedError("tbqsgd needs optimal.solve_biscaled (ROADMAP Queue 1 item 1)")
-    else:
-        dens = dist.density_from_histogram(counts, edges)
-        if cfg.method == "nqsgd":
-            alpha = tail.g_max
+    return _plan_from(cfg, tail, lambda: dist.density_from_histogram(counts, edges))
+
+
+def encode(cfg: CompressorConfig, g: torch.Tensor, meta: QuantMeta,
+           key: torch.Tensor) -> torch.Tensor:
+    """Encode ``g`` to the wire: int32 words with the bits of ``pack_codes``
+    (or uint8 codes with ``pack=False``).  ``use_pallas`` picks the encode
+    as in the JAX package (module docstring)."""
+    flat = g.reshape(-1).to(torch.float32)
+    if cfg.use_pallas:
+        from repro_torch.kernels import ops
+
+        if cfg.method in _UNIFORM:
+            codes = ops.uniform_encode(flat, meta.alpha, cfg.bits, key)
         else:
-            alpha = optimal.solve_alpha_nonuniform(tail, dens, cfg.bits, iters=cfg.alpha_iters)
-        levels = optimal.nonuniform_codebook(dens, alpha, cfg.bits)
-    return QuantMeta(levels=levels.to(torch.float32), alpha=alpha.to(torch.float32))
+            codes = ops.codebook_encode(flat, meta.levels, key)
+    else:
+        codes = stochastic_encode(flat, meta, key)
+    return pack_codes(codes, cfg.bits) if cfg.pack else codes
+
+
+def decode(cfg: CompressorConfig, wire: torch.Tensor, meta: QuantMeta,
+           shape: tuple[int, ...]) -> torch.Tensor:
+    """Wire -> ``levels[code]`` in ``shape``; raises on a wire whose length
+    disagrees with the shape and bits."""
+    n = 1
+    for d in shape:
+        n *= d
+    if cfg.pack:
+        expected = packed_size(n, cfg.bits)
+        if tuple(wire.shape) != (expected,):
+            raise ValueError(
+                f"wire has shape {tuple(wire.shape)}; {n} elements at "
+                f"{cfg.bits} bits need ({expected},) packed uint32 words")
+        codes = unpack_codes(wire, n, cfg.bits)
+    else:
+        if tuple(wire.shape) != (n,):
+            raise ValueError(
+                f"unpacked wire has shape {tuple(wire.shape)}; expected ({n},) codes")
+        codes = wire
+    return _decode(codes, meta).reshape(shape)
+
+
+def compress_decompress(cfg: CompressorConfig, g: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """One-shot quantization surrogate ``C_b[g]`` (what the server receives)."""
+    if cfg.method == "dsgd":
+        return g
+    meta = plan(cfg, g)
+    wire = encode(cfg, g, meta, key)
+    return decode(cfg, wire, meta, tuple(g.shape)).to(g.dtype)
+
+
+def tree_compress_decompress(cfg: CompressorConfig, grads: list, key: torch.Tensor) -> list:
+    """The two-stage quantizer applied independently to every leaf of a
+    gradient list (``models.smallnet.tree_leaves`` order), leaf i with key
+    ``split(key, n)[i]``."""
+    if cfg.method == "dsgd":
+        return list(grads)
+    keys = prng.split(key, len(grads))
+    return [compress_decompress(cfg, leaf, k) for leaf, k in zip(grads, keys)]
 
 
 def _is_plan_entry(entry) -> bool:

@@ -1,23 +1,28 @@
 """Power-law tail and empirical density of gradient elements (paper §IV).
 
-The port of the one-pass-statistics half of ``repro.core.distributions``:
-the symmetric power-law tail fitted from a log2-spaced |g| histogram with
-per-bin ln|g| sums (``tail_from_histogram``), and the piecewise-constant
-empirical density behind the non-uniform codebook.
+The port of ``repro.core.distributions``: the symmetric power-law tail
+fitted from a log2-spaced |g| histogram with per-bin ln|g| sums
+(``tail_from_histogram``) or from the raw tensor by the sort-based Hill fit
+(``fit_power_law_tail``), and the piecewise-constant empirical density
+behind the non-uniform codebooks, from a histogram or from the tensor
+(``fit_empirical_density``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from .quantizers import interp
+from .quantizers import interp, linspace
 
 # Paper restricts gamma to (3, 5]: the bias integral needs gamma > 3 and
 # empirical fits above 5 are indistinguishable from thin tails.
 GAMMA_MIN = 3.05
 GAMMA_MAX = 5.0
+#: log-spaced bins of ``approx_abs_quantile`` over its 8 decades
+QUANTILE_BINS = 512
 _EPS = 1e-12
 
 
@@ -28,6 +33,74 @@ class PowerLawTail(NamedTuple):
     g_min: torch.Tensor   # lower bound of power-law behaviour
     rho: torch.Tensor     # one-sided tail mass P(g > g_min)
     g_max: torch.Tensor   # max |g| observed (used to clamp alpha)
+
+
+def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q)`` (linear interpolation) of a flat float32 tensor.
+
+    A sort, then the installed JAX's ``_quantile`` arithmetic: the rank
+    ``q·(n−1)`` in float32, its floor and ceiling, and the two neighbours
+    weighted ``lo·(1 − w) + hi·w`` with ``w = rank − floor``.  XLA on the CPU
+    contracts that sum into ``fma(hi, w, round(lo·(1 − w)))``; the product
+    ``hi·w`` is exact in float64, so the sum is taken there and rounded
+    once.  The rank and weights depend on n and q alone and stay on the host.
+    """
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    rank = np.float32(q) * np.float32(n - 1)
+    lo, hi = int(np.clip(np.floor(rank), 0, n - 1)), int(np.clip(np.ceil(rank), 0, n - 1))
+    w_hi = np.float32(rank - np.floor(rank))
+    w_lo = np.float32(1.0) - w_hi
+    low = (s[lo] * float(w_lo)).to(torch.float64)
+    return (s[hi].to(torch.float64) * float(w_hi) + low).to(torch.float32)
+
+
+def histogram(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """``jnp.histogram(x, bins=edges)[0]`` as float32 counts: bin i holds
+    ``edges[i] <= x < edges[i+1]``, and x equal to the last edge falls in the
+    last bin; values outside the edges are dropped."""
+    k = edges.shape[0]
+    idx = torch.searchsorted(edges, x.reshape(-1), right=True)
+    idx = torch.where(x.reshape(-1) == edges[-1], k - 1, idx)
+    return torch.bincount(idx, minlength=k + 1)[1:k].to(torch.float32)
+
+
+def approx_abs_quantile(gabs: torch.Tensor, q: float) -> torch.Tensor:
+    """Histogram-based approximate ``q``-quantile of a non-negative tensor:
+    ``QUANTILE_BINS`` log-spaced bins over 8 decades below the max, interpolated
+    inside the crossing bin (O(n), no sort)."""
+    g_max = torch.clamp_min(torch.max(gabs), _EPS)
+    lo = g_max * 1e-8
+    log_lo, log_hi = torch.log(lo), torch.log(g_max)
+    x = torch.clamp(torch.log(torch.maximum(gabs, lo)), log_lo, log_hi)
+    edges = linspace(log_lo, log_hi, QUANTILE_BINS + 1)
+    cum = torch.cat([torch.zeros(1, dtype=torch.float32, device=gabs.device),
+                     torch.cumsum(histogram(x, edges), 0)])
+    return torch.exp(interp(torch.tensor(q * gabs.numel(), device=gabs.device), cum, edges))
+
+
+def fit_power_law_tail(
+    g: torch.Tensor,
+    *,
+    gmin_quantile: float = 0.9,
+    approx_quantile: bool = False,
+) -> PowerLawTail:
+    """Fit the symmetric power-law tail of ``g``'s elements: ``g_min`` is the
+    ``gmin_quantile`` quantile of |g| (exact by a sort, or the histogram
+    approximation with ``approx_quantile``), γ the Hill estimator over
+    |g| > g_min."""
+    gabs = torch.abs(g.reshape(-1)).to(torch.float32)
+    g_max = torch.max(gabs)
+    g_min = (approx_abs_quantile(gabs, gmin_quantile) if approx_quantile
+             else quantile(gabs, gmin_quantile))
+    g_min = torch.clamp_min(g_min, _EPS)
+    in_tail = gabs > g_min
+    n_tail = torch.sum(in_tail).to(torch.float32)
+    log_ratio = torch.where(in_tail, torch.log(torch.clamp_min(gabs, _EPS) / g_min), 0.0)
+    sum_log = torch.sum(log_ratio)
+    gamma = torch.clamp(1.0 + n_tail / torch.clamp_min(sum_log, _EPS), GAMMA_MIN, GAMMA_MAX)
+    rho = torch.clamp_min(0.5 * n_tail / n_tail.new_full((), max(gabs.numel(), 1)), _EPS)
+    return PowerLawTail(gamma=gamma, g_min=g_min, rho=rho, g_max=torch.clamp_min(g_max, _EPS))
 
 
 def tail_from_histogram(
@@ -47,10 +120,12 @@ def tail_from_histogram(
     total = torch.sum(counts)
     cum = torch.cumsum(counts, 0)
     idx = torch.clamp(torch.searchsorted(cum, (gmin_quantile * total).reshape(1)), 0, k - 1)[0]
-    g_min = torch.clamp_min(torch.minimum(edges[idx + 1], g_max), _EPS)
-    n_tail = total - cum[idx]
+    # torch.take, not indexing: a 0-dim index tensor would be read on the
+    # host, a device sync on the card
+    g_min = torch.clamp_min(torch.minimum(torch.take(edges, idx + 1), g_max), _EPS)
+    n_tail = total - torch.take(cum, idx)
     cum_log = torch.cumsum(log_sums, 0)
-    sum_log = (cum_log[k - 1] - cum_log[idx]) - n_tail * torch.log(g_min)
+    sum_log = (cum_log[k - 1] - torch.take(cum_log, idx)) - n_tail * torch.log(g_min)
     gamma = torch.clamp(1.0 + n_tail / torch.clamp_min(sum_log, _EPS), GAMMA_MIN, GAMMA_MAX)
     rho = torch.clamp_min(0.5 * n_tail / torch.clamp_min(total, 1.0), _EPS)
     return PowerLawTail(gamma=gamma, g_min=g_min, rho=rho, g_max=torch.clamp_min(g_max, _EPS))
@@ -84,6 +159,19 @@ def density_from_histogram(counts: torch.Tensor, edges: torch.Tensor) -> Empiric
     widths = torch.clamp_min(edges[1:] - edges[:-1], _EPS)
     total = torch.clamp_min(torch.sum(counts), 1.0)
     return EmpiricalDensity(edges=edges, density=counts / (2.0 * total * widths))
+
+
+def fit_empirical_density(g: torch.Tensor, *, num_bins: int = 128) -> EmpiricalDensity:
+    """Histogram of |g| on ``num_bins`` equal bins over [0, max|g|], as the
+    two-sided density ``counts / (2·n·width)``."""
+    gabs = torch.abs(g.reshape(-1)).to(torch.float32)
+    g_max = torch.clamp_min(torch.max(gabs), _EPS)
+    edges = linspace(torch.zeros((), device=g.device), g_max, num_bins + 1)
+    counts = histogram(gabs, edges)
+    width = edges[1] - edges[0]
+    n = float(max(gabs.numel(), 1))
+    return EmpiricalDensity(edges=edges,
+                            density=counts / (2.0 * n * torch.clamp_min(width, _EPS)))
 
 
 def _cum_integral(dens: EmpiricalDensity, values: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import prng
+
 _EPS = 1e-12
 
 
@@ -46,13 +48,15 @@ def uniform_levels(alpha: torch.Tensor, bits: int) -> torch.Tensor:
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """``jnp.interp``: piecewise-linear, clamped to ``fp[0]``/``fp[-1]``
-    outside ``[xp[0], xp[-1]]``."""
+    outside ``[xp[0], xp[-1]]``.  The gathers are ``torch.take``: indexing
+    with a 0-dim index tensor (a scalar x) would read it on the host, a
+    device sync on the card."""
     x = torch.as_tensor(x, dtype=torch.float32, device=xp.device)
     i = torch.clamp(torch.searchsorted(xp, x.reshape(-1), right=True), 1, xp.shape[0] - 1)
     i = i.reshape(x.shape)
-    f0, x0 = fp[i - 1], xp[i - 1]
-    df = fp[i] - f0
-    dx = xp[i] - x0
+    f0, x0 = torch.take(fp, i - 1), torch.take(xp, i - 1)
+    df = torch.take(fp, i) - f0
+    dx = torch.take(xp, i) - x0
     delta = x - x0
     dx0 = torch.abs(dx) <= 1.4210855e-14          # np.spacing(float32 eps)
     f = torch.where(dx0, f0, f0 + (delta / torch.where(dx0, 1.0, dx)) * df)
@@ -89,6 +93,35 @@ class QuantMeta(NamedTuple):
 
     levels: torch.Tensor  # (s+1,) float32 codebook
     alpha: torch.Tensor   # scalar float32 truncation threshold (levels[-1])
+
+
+def stochastic_encode(g: torch.Tensor, meta: QuantMeta, key: torch.Tensor) -> torch.Tensor:
+    """Truncate + stochastically round ``g`` onto ``meta.levels`` (Eq. 4):
+    uint8 codes of g's shape, unbiased, ``E[levels[code]] = truncate(g, α)``.
+
+    The interval index is ``searchsorted(levels, gt, right) − 1`` clamped to
+    [0, s−1]; the rounding draws ``uniform(key, g.shape)``, one word per
+    element of g as it is (not of a padded tile).
+    """
+    levels = meta.levels
+    s = levels.shape[0] - 1
+    gt = truncate(g, meta.alpha)
+    k = torch.searchsorted(levels, gt.reshape(-1), right=True).reshape(gt.shape) - 1
+    k = torch.clamp(k, 0, s - 1)
+    lo, hi = levels[k], levels[k + 1]
+    pr = (gt - lo) / torch.clamp_min(hi - lo, _EPS)
+    up = prng.uniform(key, g.shape, device=g.device) < pr
+    return (k + up.to(k.dtype)).to(torch.uint8)
+
+
+def decode(codes: torch.Tensor, meta: QuantMeta) -> torch.Tensor:
+    """Map codes back to codebook values (``levels[code]``)."""
+    return meta.levels[codes.to(torch.int64)]
+
+
+def quantize(g: torch.Tensor, meta: QuantMeta, key: torch.Tensor) -> torch.Tensor:
+    """encode+decode in one step: the quantized surrogate of ``g``."""
+    return decode(stochastic_encode(g, meta, key), meta)
 
 
 def packed_size(n: int, bits: int) -> int:

@@ -19,7 +19,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stats", "encode_fused", "decode", "orthogonalize")
+SOURCES = ("stats", "encode_fused", "decode", "orthogonalize", "quantize")
 # No --use_fast_math: logf, IEEE division and separate multiply/add
 # (-fmad=false) keep each kernel's arithmetic equal to its plain PyTorch
 # version on the card.

@@ -8,12 +8,12 @@
 //
 // For each element of the (rows, 128) bucket c, with the explicit uniform
 // draw rand:
-//   codebook (levels[0..s]; quantize.codebook_select):
+//   codebook (levels[0..s]; select.cuh's codebook_select):
 //     x  = clip(c, -levels[s], levels[s])
 //     k  = #(x >= levels[1..s]) clamped to [0, s-1]      (compare-count)
 //     up = rand < (x - lo) / max(hi - lo, 1e-12),  lo = levels[k], hi = levels[k+1]
 //     code = k + up,  resid = c - (up ? hi : lo)
-//   uniform (alpha[0]; quantize.uniform_select, in this order):
+//   uniform (alpha[0]; select.cuh's uniform_select, in this order):
 //     scale = s / (2 alpha);  u = (clip(c, -alpha, alpha) + alpha) * scale
 //     k  = clip(floor u, 0, s-1);  up = rand < u - k;  code = clip(k + up, 0, s)
 //     resid = c - (code * (2 alpha / s) - alpha), from the code zeroed past n
@@ -33,7 +33,7 @@
 // is exact.  Built with -fmad=false and IEEE division, the uniform
 // arithmetic rounds exactly as the plain PyTorch version's separate ops do:
 // floor(u) flips at integers, so u must come out bit for bit.
-#include "common.cuh"
+#include "select.cuh"
 
 namespace {
 
@@ -57,33 +57,17 @@ encode_pack_kernel(const float* __restrict__ c, const float* __restrict__ rand,
   int code;
   if (UNIFORM) {
     const float alpha = meta[0];
-    const float scale = (float)s / (2.0f * alpha);
-    const float u = (fminf(fmaxf(x0, -alpha), alpha) + alpha) * scale;
-    const float k = fminf(fmaxf(floorf(u), 0.0f), (float)(s - 1));
-    const float up = rand[idx] < u - k ? 1.0f : 0.0f;
-    code = idx < n ? (int)fminf(fmaxf(k + up, 0.0f), (float)s) : 0;
+    code = idx < n ? (int)uniform_select(x0, rand[idx], alpha, s) : 0;
     if (RESID) {
       const float step = (2.0f * alpha) / (float)s;
       resid[idx] = x0 - ((float)code * step - alpha);
     }
   } else {
-    const float alpha = lv[s];
-    const float x = fminf(fmaxf(x0, -alpha), alpha);
-    int k = 0;
-    for (int j = 1; j <= s; ++j) k += x >= lv[j];
-    k = min(max(k, 0), s - 1);
-    const float lo = lv[k], hi = lv[k + 1];
-    const float pr = (x - lo) / fmaxf(hi - lo, 1e-12f);
-    const bool up = rand[idx] < pr;
-    if (RESID) resid[idx] = x0 - (up ? hi : lo);
-    code = idx < n ? k + (int)up : 0;
+    const Pick pick = codebook_select(x0, rand[idx], lv, s);
+    if (RESID) resid[idx] = x0 - pick.value;
+    code = idx < n ? pick.code : 0;
   }
-  const long long group = idx >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < bits; ++j) {
-    const unsigned plane = __ballot_sync(FULL_MASK, (code >> j) & 1);
-    if (lane == 0) words[group * bits + j] = (int)plane;
-  }
+  ballot_pack(code, bits, words + (idx >> 5) * bits);
 }
 
 template <bool UNIFORM, bool RESID>

@@ -20,6 +20,7 @@ from repro_torch.core.quantizers import packed_size
 from . import decode as _d
 from . import encode_fused as _e
 from . import orthogonalize as _o
+from . import quantize as _q
 from . import ref
 from . import stats as _s
 
@@ -34,10 +35,10 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for tensors on {x.device}")
 
 
-def _to_2d(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+def _to_2d(x: torch.Tensor, dtype=torch.float32) -> tuple[torch.Tensor, int]:
     n = x.numel()
     rows = -(-n // LANES)
-    x2 = torch.zeros(rows * LANES, dtype=torch.float32, device=x.device)
+    x2 = torch.zeros(rows * LANES, dtype=dtype, device=x.device)
     x2[:n] = x.reshape(-1)
     return x2.reshape(rows, LANES), n
 
@@ -84,12 +85,18 @@ def _alpha(alpha: torch.Tensor) -> torch.Tensor:
     return _f32(alpha.reshape(1))
 
 
+def _draw(g: torch.Tensor, key: torch.Tensor):
+    """``g`` padded to (rows, 128), its element count, and the uniforms
+    drawn on that padded tile."""
+    g2, n = _to_2d(g)
+    return g2, n, prng.uniform(key, g2.shape, device=g2.device)
+
+
 def _encode(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int, key: torch.Tensor):
     """Pad ``g`` to (rows, 128), draw ``rand`` on that tile, encode; returns
     the ``packed_size(n, bits)`` words, and the (n,) residual where the
     kernel writes one."""
-    g2, n = _to_2d(g)
-    rand = prng.uniform(key, g2.shape, device=g2.device)
+    g2, n, rand = _draw(g, key)
     out = (kernel if _on_card(g2) else plain)(g2, rand, meta, n, bits)
     words, resid = out if isinstance(out, tuple) else (out, None)
     words = words.reshape(-1)[:packed_size(n, bits)]
@@ -127,6 +134,60 @@ def uniform_encode_pack(g: torch.Tensor, alpha: torch.Tensor, bits: int,
     """Uniform encode + bit-pack, words only (K7)."""
     return _encode(_e.uniform_encode_pack_2d, ref.uniform_encode_pack, g, _alpha(alpha), bits,
                    key)
+
+
+def uniform_encode(g: torch.Tensor, alpha: torch.Tensor, bits: int,
+                   key: torch.Tensor) -> torch.Tensor:
+    """Truncate + uniform stochastic encode onto [−α, α] (K12).  Returns
+    flat uint8 codes."""
+    g2, n, rand = _draw(g, key)
+    codes = (_q.uniform_encode_2d if _on_card(g2) else ref.uniform_encode)(
+        g2, rand, _alpha(alpha), bits)
+    return codes.reshape(-1)[:n].to(torch.uint8)
+
+
+def uniform_decode(codes: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
+    """Flat codes -> ``code·(2α/s) − α`` (K13)."""
+    c2, n = _to_2d(codes.to(torch.int32), torch.int32)
+    vals = (_q.uniform_decode_2d if _on_card(c2) else ref.uniform_decode)(c2, _alpha(alpha), bits)
+    return vals.reshape(-1)[:n]
+
+
+def uniform_encode_packed(g: torch.Tensor, alpha: torch.Tensor, bits: int,
+                          key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Truncate + uniform stochastic encode + bit-pack (K16).  Returns
+    ``(words, codes)``: the ``packed_size(n, bits)`` int32 wire words (the
+    bits of ``pack_codes`` of the codes) and the flat uint8 codes."""
+    g2, n, rand = _draw(g, key)
+    codes, words = (_q.uniform_encode_pack_2d if _on_card(g2) else ref.uniform_encode_pack_codes)(
+        g2, rand, _alpha(alpha), n, bits)
+    return words.reshape(-1)[:packed_size(n, bits)], codes.reshape(-1)[:n].to(torch.uint8)
+
+
+def codebook_encode_packed(g: torch.Tensor, levels: torch.Tensor, bits: int,
+                           key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Codebook stochastic encode + bit-pack onto ``levels`` (K17); returns
+    ``(words, codes)`` as :func:`uniform_encode_packed`."""
+    g2, n, rand = _draw(g, key)
+    codes, words = (_q.codebook_encode_pack_2d if _on_card(g2)
+                    else ref.codebook_encode_pack_codes)(g2, rand, _f32(levels), n, bits)
+    return words.reshape(-1)[:packed_size(n, bits)], codes.reshape(-1)[:n].to(torch.uint8)
+
+
+def codebook_encode(g: torch.Tensor, levels: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Truncate + codebook stochastic encode onto ``levels`` (K14).
+    Returns flat uint8 codes."""
+    g2, n, rand = _draw(g, key)
+    codes = (_q.codebook_encode_2d if _on_card(g2) else ref.codebook_encode)(
+        g2, rand, _f32(levels))
+    return codes.reshape(-1)[:n].to(torch.uint8)
+
+
+def codebook_decode(codes: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """Flat codes -> ``levels[code]`` (K15)."""
+    c2, n = _to_2d(codes.to(torch.int32), torch.int32)
+    vals = (_q.codebook_decode_2d if _on_card(c2) else ref.codebook_decode)(c2, _f32(levels))
+    return vals.reshape(-1)[:n]
 
 
 def _to_words3(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:

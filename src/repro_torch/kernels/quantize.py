@@ -1,0 +1,138 @@
+"""Per-tensor stochastic encode [→ bit-pack] and decode kernels: K12–K17.
+
+The port of ``repro.kernels.quantize``: the uniform (``uniform_*``, α from
+a one-element device tensor) and codebook (``codebook_*``, the (s+1,)
+levels) flavours of one encode and one decode template
+(``csrc/quantize.cu``).  The encodes round a (rows, 128) fp32 tensor
+stochastically with an explicit (rows, 128) uniform draw and write int32
+codes; the ``*_encode_pack_2d`` flavours also zero the codes past the true
+element count n and pack them into the (rows, 4·bits) wire words of
+``core.quantizers.pack_codes``.  The decodes map int32 codes back to
+``code·(2α/s) − α`` or ``levels[code]``.  All take CUDA tensors only;
+their plain PyTorch versions are in ``kernels.ref`` and the per-tensor
+wrappers in ``kernels.ops``.
+
+K16 and K17 share their TPU names with K7 and K6 of ``encode_fused``;
+``kernels.launch_counts`` keys every kernel by module and name.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .stats import LANES, check_2d
+
+
+def _meta(name: str, meta: torch.Tensor, like: torch.Tensor, shape: tuple | None = None) -> int:
+    """Check an α (``shape`` (1,)) or levels (2 to 256 entries) operand on
+    ``like``'s device; returns s."""
+    ok = (meta.dtype == torch.float32 and meta.device == like.device and meta.is_contiguous()
+          and (meta.shape == shape if shape else meta.dim() == 1 and 2 <= meta.shape[0] <= 256))
+    if not ok:
+        want = f"a {shape}" if shape else "a (s+1,) with 2 <= s+1 <= 256"
+        raise ValueError(f"{name} must be {want} contiguous fp32 tensor on {like.device}, "
+                         f"got {tuple(meta.shape)} {meta.dtype} on {meta.device}")
+    return meta.shape[0] - 1
+
+
+def _bits(bits: int) -> int:
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in [1, 8], got {bits}")
+    return 2**bits - 1
+
+
+def _encode(kernel, fn_name: str, g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor,
+            s: int, n: int | None = None, bits: int = 0):
+    check_2d("g", g2)
+    check_2d("rand", rand)
+    if rand.shape != g2.shape or rand.device != g2.device:
+        raise ValueError("rand must match g in shape and device")
+    rows = g2.shape[0]
+    codes = torch.empty((rows, LANES), dtype=torch.int32, device=g2.device)
+    if n is None:
+        args = [ctypes.c_longlong(rows), _build.ptr(codes)]
+        argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    else:
+        if not 1 <= n <= g2.numel():
+            raise ValueError(f"n={n} outside [1, {g2.numel()}]")
+        words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=g2.device)
+        args = [ctypes.c_int(bits), ctypes.c_longlong(n), ctypes.c_longlong(rows),
+                _build.ptr(codes), _build.ptr(words)]
+        argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_void_p]
+    fn = _build.bind("quantize", fn_name,
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] + argtypes + [ctypes.c_void_p])
+    with torch.cuda.device(g2.device):
+        code = fn(_build.ptr(g2), _build.ptr(rand), _build.ptr(meta), s, *args,
+                  _build.stream(g2))
+    _build.check(code, kernel.__name__)
+    kernel.launches += 1
+    return codes if n is None else (codes, words)
+
+
+def _decode(kernel, fn_name: str, codes2: torch.Tensor, meta: torch.Tensor, s: int):
+    check_2d("codes", codes2, dtype=torch.int32)
+    fn = _build.bind("quantize", fn_name, [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+    out = torch.empty(codes2.shape, dtype=torch.float32, device=codes2.device)
+    with torch.cuda.device(codes2.device):
+        code = fn(_build.ptr(codes2), _build.ptr(meta), s, codes2.shape[0], _build.ptr(out),
+                  _build.stream(codes2))
+    _build.check(code, kernel.__name__)
+    kernel.launches += 1
+    return out
+
+
+def uniform_encode_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    """K12: g, rand (rows, 128) fp32 CUDA, alpha (1,) fp32 -> (rows, 128)
+    int32 codes in [0, 2^bits − 1], the padding included."""
+    _meta("alpha", alpha, g2, (1,))
+    return _encode(uniform_encode_2d, "repro_uniform_encode", g2, rand, alpha, _bits(bits))
+
+
+def codebook_encode_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """K14: g, rand (rows, 128) fp32 CUDA, levels (s+1,) fp32 -> (rows, 128)
+    int32 codes in [0, s], the padding included."""
+    s = _meta("levels", levels, g2)
+    return _encode(codebook_encode_2d, "repro_codebook_encode", g2, rand, levels, s)
+
+
+def uniform_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor, n: int,
+                           bits: int):
+    """K16: K12's codes, zeroed past n, and their (rows, 4·bits) int32 wire
+    words."""
+    _meta("alpha", alpha, g2, (1,))
+    return _encode(uniform_encode_pack_2d, "repro_uniform_encode_pack_codes", g2, rand, alpha,
+                   _bits(bits), n, bits)
+
+
+def codebook_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor, n: int,
+                            bits: int):
+    """K17: K14's codes, zeroed past n, and their (rows, 4·bits) int32 wire
+    words; levels must have 2^bits entries."""
+    s = _meta("levels", levels, g2, (_bits(bits) + 1,))
+    return _encode(codebook_encode_pack_2d, "repro_codebook_encode_pack_codes", g2, rand, levels,
+                   s, n, bits)
+
+
+def uniform_decode_2d(codes2: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
+    """K13: codes (rows, 128) int32 CUDA, alpha (1,) fp32 -> (rows, 128) fp32
+    ``code·((2α)/s) − α``."""
+    _meta("alpha", alpha, codes2, (1,))
+    return _decode(uniform_decode_2d, "repro_uniform_decode", codes2, alpha, _bits(bits))
+
+
+def codebook_decode_2d(codes2: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """K15: codes (rows, 128) int32 CUDA, levels (s+1,) fp32 -> (rows, 128)
+    fp32 ``levels[code]`` (0 for a code outside [0, s])."""
+    s = _meta("levels", levels, codes2)
+    return _decode(codebook_decode_2d, "repro_codebook_decode", codes2, levels, s)
+
+
+for _k in (uniform_encode_2d, codebook_encode_2d, uniform_encode_pack_2d, codebook_encode_pack_2d,
+           uniform_decode_2d, codebook_decode_2d):
+    _k.launches = 0
+del _k

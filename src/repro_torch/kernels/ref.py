@@ -74,14 +74,14 @@ def ef_correct_stats(g2: torch.Tensor, e2: torch.Tensor, n: int):
     return c2, bucket_stats(c2, n)
 
 
-def codebook_encode_pack_residual(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
-                                  n: int, bits: int):
-    """(rows, 128) bucket + (rows, 128) uniforms + (s+1,) codebook ->
-    ((rows, 4·bits) int32 wire words, (rows, 128) residual ``g − levels[code]``).
+def _codebook_select(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor):
+    """``quantize.codebook_select``: stochastic rounding of g onto the
+    (s+1,) codebook with the explicit uniforms ``rand``.  Returns (int64
+    codes in [0, s], ``levels[code]``).
 
     The interval index comes from a binary search, which equals the
-    kernel's compare-count ``#(clip(g) >= levels[1:])`` clamped to [0, s−1]:
-    clipping puts every value at or above levels[0].  Codes past n are zero.
+    kernels' compare-count ``#(clip(g) >= levels[1:])`` clamped to [0, s−1]:
+    clipping puts every value at or above levels[0].
     """
     s = levels.shape[0] - 1
     alpha = levels[s]
@@ -89,12 +89,44 @@ def codebook_encode_pack_residual(g2: torch.Tensor, rand: torch.Tensor, levels: 
     k = torch.searchsorted(levels, gt.reshape(-1), right=True).reshape(gt.shape) - 1
     k = torch.clamp(k, 0, s - 1)
     lo, hi = levels[k], levels[k + 1]
-    pr = (gt - lo) / torch.clamp_min(hi - lo, 1e-12)
-    up = rand < pr
-    resid = g2 - torch.where(up, hi, lo)
-    codes = (k + up.to(k.dtype)).reshape(-1)
+    up = rand < (gt - lo) / torch.clamp_min(hi - lo, 1e-12)
+    return k + up.to(k.dtype), torch.where(up, hi, lo)
+
+
+def _uniform_select(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
+                    s: int) -> torch.Tensor:
+    """``quantize.uniform_select`` op for op -> float codes in [0, s]:
+    ``scale = s/(2α)``, ``u = (clip(g, −α, α) + α)·scale``,
+    ``k = clip(floor u, 0, s−1)``, ``code = clip(k + (rand < u − k), 0, s)``.
+    The clamps of k and the code are ``fmin``/``fmax``, which drop a NaN as
+    the kernels' ``fminf``/``fmaxf`` do, so α = 0 (an infinite scale) gives
+    code 0, as the JAX package's float→int conversion does."""
+    alpha = alpha.reshape(())
+    zero = torch.zeros((), dtype=torch.float32, device=g2.device)
+    scale = (zero + float(s)) / (2.0 * alpha)
+    u = (torch.minimum(torch.maximum(g2, -alpha), alpha) + alpha) * scale
+    k = torch.fmin(torch.fmax(torch.floor(u), zero), zero + float(s - 1))
+    return torch.fmin(torch.fmax(k + (rand < u - k).to(torch.float32), zero), zero + float(s))
+
+
+def _masked(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """Flat int64 codes with every code past element n zeroed (``_mask_tail``)."""
+    codes = codes.reshape(-1).to(torch.int64, copy=True)
     codes[n:] = 0
-    return pack_codes(codes, bits).reshape(g2.shape[0], -1), resid
+    return codes
+
+
+def _words(codes: torch.Tensor, rows: int, bits: int) -> torch.Tensor:
+    return pack_codes(codes, bits).reshape(rows, -1)
+
+
+def codebook_encode_pack_residual(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
+                                  n: int, bits: int):
+    """(rows, 128) bucket + (rows, 128) uniforms + (s+1,) codebook ->
+    ((rows, 4·bits) int32 wire words, (rows, 128) residual ``g − levels[code]``).
+    Codes past n are zero."""
+    codes, value = _codebook_select(g2, rand, levels)
+    return _words(_masked(codes, n), g2.shape[0], bits), g2 - value
 
 
 def codebook_encode_pack(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
@@ -112,32 +144,63 @@ def uniform_encode_pack_residual(g2: torch.Tensor, rand: torch.Tensor, alpha: to
                                  n: int, bits: int):
     """(rows, 128) bucket + (rows, 128) uniforms + (1,) α -> ((rows, 4·bits)
     int32 wire words, (rows, 128) residual ``g − (code·2α/s − α)``).
-
-    ``quantize.uniform_select`` op for op: ``scale = s/(2α)``, then
-    ``u = (clip(g, −α, α) + α)·scale``, ``k = clip(floor u, 0, s−1)``,
-    ``code = k + (rand < u − k)``.  The clamps are ``fmin``/``fmax``, which
-    drop a NaN as the kernel's ``fminf``/``fmaxf`` do, so α = 0 (an infinite
-    scale) gives code 0, as the JAX package's float→int conversion does.
     Codes past n are zero, and the residual there is taken from the zeroed
-    code, as in the Pallas kernel.
-    """
+    code, as in the Pallas kernel."""
     s = 2**bits - 1
     alpha = alpha.reshape(())
-    zero = torch.zeros((), dtype=torch.float32, device=g2.device)
-    scale = (zero + float(s)) / (2.0 * alpha)
-    u = (torch.minimum(torch.maximum(g2, -alpha), alpha) + alpha) * scale
-    k = torch.fmin(torch.fmax(torch.floor(u), zero), zero + float(s - 1))
-    code = torch.fmin(torch.fmax(k + (rand < u - k).to(torch.float32), zero), zero + float(s))
-    codes = code.to(torch.int64).reshape(-1)
-    codes[n:] = 0
+    codes = _masked(_uniform_select(g2, rand, alpha, s), n)
     resid = g2 - (codes.reshape(g2.shape).to(torch.float32) * _step(alpha, s) - alpha)
-    return pack_codes(codes, bits).reshape(g2.shape[0], -1), resid
+    return _words(codes, g2.shape[0], bits), resid
 
 
 def uniform_encode_pack(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
                         n: int, bits: int) -> torch.Tensor:
     """The wire words of :func:`uniform_encode_pack_residual` alone."""
     return uniform_encode_pack_residual(g2, rand, alpha, n, bits)[0]
+
+
+def uniform_encode(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
+                   bits: int) -> torch.Tensor:
+    """K12: (rows, 128) g + uniforms + (1,) α -> (rows, 128) int32 codes,
+    the padding past n encoded too (no mask)."""
+    return _uniform_select(g2, rand, alpha, 2**bits - 1).to(torch.int32)
+
+
+def codebook_encode(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """K14: (rows, 128) g + uniforms + (s+1,) codebook -> (rows, 128) int32
+    codes, the padding past n encoded too."""
+    return _codebook_select(g2, rand, levels)[0].to(torch.int32)
+
+
+def uniform_encode_pack_codes(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
+                              n: int, bits: int):
+    """K16: K12's codes zeroed past n, and their words: ((rows, 128) int32
+    codes, (rows, 4·bits) int32 words)."""
+    codes = _masked(_uniform_select(g2, rand, alpha, 2**bits - 1), n)
+    return codes.to(torch.int32).reshape(g2.shape), _words(codes, g2.shape[0], bits)
+
+
+def codebook_encode_pack_codes(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
+                               n: int, bits: int):
+    """K17: K14's codes zeroed past n, and their words."""
+    codes = _masked(_codebook_select(g2, rand, levels)[0], n)
+    return codes.to(torch.int32).reshape(g2.shape), _words(codes, g2.shape[0], bits)
+
+
+def uniform_decode(codes2: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
+    """K13: (rows, 128) int32 codes + (1,) α -> ``code·((2α)/s) − α``, the
+    product and the difference rounded apart."""
+    alpha = alpha.reshape(())
+    return codes2.to(torch.float32) * _step(alpha, 2**bits - 1) - alpha
+
+
+def codebook_decode(codes2: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """K15: (rows, 128) int32 codes + (s+1,) codebook -> ``levels[code]``;
+    a code outside [0, s] gives 0, as the Pallas kernel's one-hot product."""
+    s = levels.shape[0] - 1
+    inside = (codes2 >= 0) & (codes2 <= s)
+    return torch.where(inside, levels[torch.clamp(codes2, 0, s).to(torch.int64)],
+                       torch.zeros((), dtype=torch.float32, device=codes2.device))
 
 
 def _peer_codes(words3: torch.Tensor, p: int, bits: int) -> torch.Tensor:

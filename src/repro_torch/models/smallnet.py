@@ -82,3 +82,9 @@ def smallnet_logits(params: dict, imgs: torch.Tensor) -> torch.Tensor:
 def smallnet_loss(params: dict, imgs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ll = F.log_softmax(smallnet_logits(params, imgs), dim=-1)
     return -torch.mean(torch.gather(ll, 1, labels.reshape(-1, 1)))
+
+
+def accuracy(params: dict, imgs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of ``imgs`` whose largest logit is their label (a float32 scalar)."""
+    hits = torch.argmax(smallnet_logits(params, imgs), -1) == labels
+    return torch.mean(hits.to(torch.float32))

@@ -1,4 +1,4 @@
-"""The paper's N-client synced training loop on smallnet, end to end.
+"""The paper's N-client training loops on smallnet, end to end.
 
 ``train_synced`` is the port's counterpart of the JAX package's golden
 convergence run (``tests/test_golden_convergence.py::_run``): smallnet on
@@ -6,20 +6,30 @@ the synthetic shapes task, ``n_clients`` clients with their own batches,
 gradients synced each step through the bucketed reference sync
 (``dist.reference``), momentum SGD on the synced mean.  On the card every
 sync runs the port's CUDA kernels.
+
+``train_clients`` is the counterpart of ``benchmarks/common.py::
+train_clients``, the paper's §V experiment: each client compresses every
+gradient leaf on its own (``core.compressors``, the sort-based per-tensor
+plan), the server averages the decoded leaves.  With ``use_pallas`` the
+per-tensor encodes run kernels K12 (uniform methods) or K14 (codebook
+methods) on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.core import prng
 from repro_torch.core.codecs import bucket_state_sizes
-from repro_torch.core.compressors import CompressorConfig, plan_buckets
-from repro_torch.data.synthetic import client_batches, make_templates
+from repro_torch.core.compressors import CompressorConfig, compress_decompress, plan_buckets
+from repro_torch.core.error_feedback import compress_with_feedback, init_error
+from repro_torch.data.synthetic import client_batches, make_templates, shapes_batch
 from repro_torch.dist.reference import reference_sync, reference_sync_state
 from repro_torch.dist.train_step import TrainStepConfig
-from repro_torch.models.smallnet import init_smallnet, smallnet_loss, tree_leaves, tree_unflatten
+from repro_torch.models.smallnet import (accuracy, init_smallnet, smallnet_loss, tree_leaves,
+                                         tree_unflatten)
 from repro_torch.optim.optimizers import momentum_sgd
 
 _KEY_SEED = 0x5EED
@@ -31,6 +41,24 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False")
     return device
+
+
+def _float32_and_deterministic() -> None:
+    """Switch TF32 off for the process (the JAX runs are float32) and hold
+    cuDNN to deterministic algorithms: its default convolution backward
+    differs in the last bits from run to run."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _mean(xs: list) -> torch.Tensor:
+    """``sum(xs) / len(xs)``: added in order, then one IEEE division."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc / acc.new_full((), len(xs))
 
 
 def client_grads(params: dict, imgs: torch.Tensor, labels: torch.Tensor):
@@ -68,10 +96,7 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     dp_sizes = (n_clients,) if dp_sizes is None else tuple(dp_sizes)
     if math.prod(dp_sizes) != n_clients:
         raise ValueError(f"dp_sizes {dp_sizes} do not multiply to n_clients={n_clients}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    _float32_and_deterministic()
     ts = TrainStepConfig(sync=sync, error_feedback=error_feedback,
                          compressor=CompressorConfig(method=method, bits=bits))
     templates = make_templates(prng.key(42), device=device)
@@ -96,3 +121,63 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
         hist.append(float(torch.mean(losses)))
     return hist
 
+
+
+def train_clients(method: str, bits: int, *, rounds: int = 80, n_clients: int = 8,
+                  batch: int = 32, lr: float = 0.01, momentum: float = 0.9,
+                  weight_decay: float = 5e-4, seed: int = 0, eval_batch: int = 2048,
+                  error_feedback: bool = False, bits_plan=None, use_pallas: bool = False,
+                  device="cuda") -> tuple[float, list[float]]:
+    """The paper's §V run: ``n_clients`` clients, momentum SGD, every
+    gradient leaf compressed on its own by each client; returns (accuracy
+    on ``eval_batch`` held-out samples, per-round mean client loss).
+
+    ``error_feedback`` keeps one EF residual list per client
+    (``core.error_feedback``); ``bits_plan`` gives one wire width per leaf
+    (``tree_leaves`` order) in place of ``bits``; ``use_pallas`` encodes
+    through the K12/K14 kernels (``CompressorConfig.use_pallas``).  Seeds
+    follow ``benchmarks/common.py``: ``key(seed)`` for the init, ``key(42)``
+    for the templates, ``fold_in(key(7), i·n_clients + c)`` for client c in
+    round i, then ``fold_in(·, j)`` for leaf j (``split`` in
+    ``compress_with_feedback``), and the evaluation batch is
+    ``shapes_batch(templates, 10_000, eval_batch)``.  TF32 and cuDNN are set
+    as in :func:`train_synced`.
+    """
+    device = resolve_device(device)
+    _float32_and_deterministic()
+    templates = make_templates(prng.key(42), device=device)
+    params = init_smallnet(prng.key(seed), device=device)
+    opt = momentum_sgd(lr=lr, momentum=momentum, weight_decay=weight_decay)
+    state = opt.init(params)
+    ccfg = CompressorConfig(method=method, bits=bits, use_pallas=use_pallas)
+    n_leaves = len(tree_leaves(params))
+    if bits_plan is not None and len(bits_plan) != n_leaves:
+        raise ValueError(f"bits_plan has {len(bits_plan)} entries for {n_leaves} leaves")
+    leaf_cfgs = [ccfg if bits_plan is None else dataclasses.replace(ccfg, bits=int(b))
+                 for b in (bits_plan if bits_plan is not None else [bits] * n_leaves)]
+    errs = [init_error(tree_leaves(params)) for _ in range(n_clients)]
+    hist = []
+    for i in range(rounds):
+        imgs, labels = client_batches(templates, i, n_clients, batch)
+        losses, stacked = client_grads(params, imgs, labels)
+        grads = []
+        for c in range(n_clients):
+            g = [leaf[c] for leaf in stacked]
+            if method != "dsgd":
+                key = prng.fold_in(prng.key(7), i * n_clients + c)
+                if error_feedback and bits_plan is None:
+                    g, errs[c] = compress_with_feedback(ccfg, g, errs[c], key)
+                elif error_feedback:
+                    corrected = [x.to(torch.float32) + e for x, e in zip(g, errs[c])]
+                    g = [compress_decompress(leaf_cfgs[j], x, prng.fold_in(key, j))
+                         for j, x in enumerate(corrected)]
+                    errs[c] = [x - y for x, y in zip(corrected, g)]
+                else:
+                    g = [compress_decompress(leaf_cfgs[j], x, prng.fold_in(key, j))
+                         for j, x in enumerate(g)]
+            grads.append(g)
+        gmean = [_mean([g[j] for g in grads]) for j in range(n_leaves)]
+        params, state = opt.update(params, tree_unflatten(params, gmean), state)
+        hist.append(float(_mean(list(losses))))
+    imgs, labels = shapes_batch(templates, 10_000, eval_batch)
+    return float(accuracy(params, imgs, labels)), hist

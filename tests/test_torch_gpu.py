@@ -4,9 +4,10 @@ Needs an NVIDIA GPU, ``nvcc`` and no JAX; every test is marked ``gpu`` and
 skips without a card.  Run them on the card with
 ``python3 -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
-Contract: K2, K3, K6, K7 words and residuals and K4, K5, K8, K9 outputs
-bitwise (the kernels are built with ``-fmad=false`` and IEEE division, so
-the uniform dequant rounds as the plain version's separate ops do); K1/K10
+Contract: K2, K3, K6, K7 words and residuals, K4, K5, K8, K9 outputs and
+K12–K17 codes, words and values bitwise (the kernels are built with
+``-fmad=false`` and IEEE division, so the uniform dequant rounds as the
+plain version's separate ops do); K1/K10
 counts and max exact, the ln and moment sums within rtol 1e-5 (of each
 bin's sum, and of Σ|x| for the signed sum), and bitwise equal across two
 launches; K11 within rtol 1e-5 / atol 1e-6 of its plain version (the
@@ -19,7 +20,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import decode, encode_fused, ops, orthogonalize, ref, stats  # noqa: E402
+from repro_torch.core.quantizers import pack_codes  # noqa: E402
+from repro_torch.kernels import (decode, encode_fused, ops, orthogonalize, quantize,  # noqa: E402
+                                 ref, stats)
 
 pytestmark = pytest.mark.gpu
 SIZES = [999, 64 * 128 * 2 + 17, 70_000]
@@ -138,7 +141,12 @@ def test_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.uniform_decode_rows(uw[None], a.reshape(1), 5000, 3)
     ops.codebook_decode_rows(words[None], lv[None], 5000, 3)
     ops.orthogonalize(torch.randn(809, 4, device=cuda))
-    assert kernels.launch_counts() == {k.__name__: 1 for k in kernels.KERNELS}
+    codes = ops.uniform_encode(g, a, 3, prng.key(4))
+    ops.uniform_decode(codes, a, 3)
+    ops.codebook_decode(ops.codebook_encode(g, lv, prng.key(5)), lv)
+    ops.uniform_encode_packed(g, a, 3, prng.key(6))
+    ops.codebook_encode_packed(g, lv, 3, prng.key(7))
+    assert kernels.launch_counts() == {kernels.kernel_name(k): 1 for k in kernels.KERNELS}
     with pytest.raises(ValueError):
         stats.bucket_stats_2d(torch.zeros((4, 64), device=cuda), 10)
     with pytest.raises(ValueError):
@@ -152,6 +160,69 @@ def test_wrappers_count_launches_and_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         decode.uniform_decode_rows_3d(torch.zeros((2, 4, 12), dtype=torch.int32, device=cuda),
                                       torch.zeros(3, device=cuda), 3)
+
+
+# K12-K17 at every leaf size of smallnet (each a tile shape the per-tensor
+# path gives them) and a full 4 MB tensor
+Q_SIZES = [10, 16, 32, 128, 144, 1280, 4608, 200_704, 1_048_576]
+
+
+@pytest.mark.parametrize("bits", [2, 3, 8])
+@pytest.mark.parametrize("n", Q_SIZES)
+def test_quantize_kernels_bitwise(cuda, bits, n):
+    """Against the plain versions, with α and the levels of the per-tensor
+    plan that the path uses."""
+    from repro_torch.core.compressors import CompressorConfig, plan
+
+    gen = torch.Generator(device=cuda).manual_seed(bits * 7 + n)
+    g = _heavy(gen, n, cuda, 0.05)
+    g2 = ops._to_2d(g)[0]
+    rand = prng.uniform(prng.key(n), g2.shape, device=cuda)
+    lv = plan(CompressorConfig(method="tnqsgd", bits=bits), g).levels
+    a = plan(CompressorConfig(method="tqsgd", bits=bits), g).alpha.reshape(1).contiguous()
+    uc = quantize.uniform_encode_2d(g2, rand, a, bits)
+    assert torch.equal(uc, ref.uniform_encode(g2, rand, a, bits))
+    cc = quantize.codebook_encode_2d(g2, rand, lv)
+    assert torch.equal(cc, ref.codebook_encode(g2, rand, lv))
+    for kernel, plain, meta, codes in ((quantize.uniform_encode_pack_2d,
+                                        ref.uniform_encode_pack_codes, a, uc),
+                                       (quantize.codebook_encode_pack_2d,
+                                        ref.codebook_encode_pack_codes, lv, cc)):
+        pc, words = kernel(g2, rand, meta, n, bits)
+        want_codes, want_words = plain(g2, rand, meta, n, bits)
+        assert torch.equal(pc, want_codes) and torch.equal(words, want_words)
+        assert torch.equal(pc.reshape(-1)[:n], codes.reshape(-1)[:n])
+        assert torch.equal(words.reshape(-1)[:(n + 31) // 32 * bits],
+                           pack_codes(codes.reshape(-1)[:n], bits))
+    assert torch.equal(quantize.uniform_decode_2d(uc, a, bits), ref.uniform_decode(uc, a, bits))
+    assert torch.equal(quantize.codebook_decode_2d(cc, lv), ref.codebook_decode(cc, lv))
+
+
+def test_quantize_kernels_reject_bad_operands(cuda):
+    g2, rand = torch.zeros((4, 128), device=cuda), torch.zeros((4, 128), device=cuda)
+    a, lv = torch.ones(1, device=cuda), torch.linspace(-1, 1, 8, device=cuda)
+    for call in (lambda: quantize.uniform_encode_2d(g2, rand, torch.ones(2, device=cuda), 3),
+                 lambda: quantize.uniform_encode_2d(g2, rand[:2], a, 3),
+                 lambda: quantize.codebook_encode_2d(g2, rand, torch.ones(257, device=cuda)),
+                 lambda: quantize.codebook_encode_pack_2d(g2, rand, lv, 10, 2),
+                 lambda: quantize.uniform_encode_pack_2d(g2, rand, a, 513, 3),
+                 lambda: quantize.uniform_decode_2d(g2, a, 3),
+                 lambda: quantize.codebook_decode_2d(g2.to(torch.int32), lv.double())):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_per_tensor_training_runs_through_k12_and_k14(cuda):
+    from repro_torch.train import train_clients
+
+    for method, name in (("tnqsgd", "quantize.codebook_encode_2d"),
+                         ("tqsgd", "quantize.uniform_encode_2d")):
+        kernels.reset_launch_counts()
+        acc, hist = train_clients(method, 3, rounds=1, eval_batch=64, use_pallas=True,
+                                  device="cuda")
+        counts = kernels.launch_counts()
+        assert len(hist) == 1 and hist[0] == hist[0] and 0.0 <= acc <= 1.0
+        assert counts[name] == 64 and sum(counts.values()) == 64
 
 
 @pytest.mark.parametrize("shape", GS_SHAPES)
@@ -182,7 +253,7 @@ def test_orthogonalize_kernel_zero_and_dependent_columns(cuda):
 def test_orthogonalize_counts_launches_and_rejects_bad_operands(cuda):
     kernels.reset_launch_counts()
     ops.orthogonalize(torch.randn(100, 4, device=cuda))
-    assert kernels.launch_counts()["orthogonalize_2d"] == 1
+    assert kernels.launch_counts()["orthogonalize.orthogonalize_2d"] == 1
     for bad in (torch.zeros((16, 65), device=cuda),                       # rank above 64
                 torch.zeros((16, 0), device=cuda),                        # rank 0
                 torch.zeros((0, 4), device=cuda),                         # no rows
@@ -192,7 +263,7 @@ def test_orthogonalize_counts_launches_and_rejects_bad_operands(cuda):
                 torch.zeros((16, 4))):                                    # not on the card
         with pytest.raises(ValueError):
             orthogonalize.orthogonalize_2d(bad)
-    assert kernels.launch_counts()["orthogonalize_2d"] == 1
+    assert kernels.launch_counts()["orthogonalize.orthogonalize_2d"] == 1
 
 
 def test_synced_training_runs_through_the_kernels(cuda):
@@ -202,8 +273,9 @@ def test_synced_training_runs_through_the_kernels(cuda):
     hist = train_synced(error_feedback=True, steps=2, device="cuda")
     counts = kernels.launch_counts()
     assert len(hist) == 2 and all(h == h for h in hist)
-    assert counts["ef_correct_stats_2d"] == 16 and counts["codebook_encode_pack_resid_2d"] == 16
-    assert counts["codebook_decode_reduce_3d"] == 2 and counts["bucket_stats_2d"] == 0
+    assert counts["encode_fused.ef_correct_stats_2d"] == 16
+    assert counts["encode_fused.codebook_encode_pack_resid_2d"] == 16
+    assert counts["decode.codebook_decode_reduce_3d"] == 2 and counts["stats.bucket_stats_2d"] == 0
 
 
 def test_two_phase_tqsgd_runs_through_the_uniform_kernels(cuda):
@@ -213,9 +285,11 @@ def test_two_phase_tqsgd_runs_through_the_uniform_kernels(cuda):
     hist = train_synced(sync="two_phase", method="tqsgd", steps=1, device="cuda")
     counts = kernels.launch_counts()
     assert len(hist) == 1 and hist[0] == hist[0]
-    assert counts["uniform_encode_pack_resid_2d"] == 8 and counts["uniform_decode_reduce_3d"] == 8
-    assert counts["uniform_encode_pack_2d"] == 8 and counts["uniform_decode_rows_3d"] == 1
-    assert counts["bucket_stats_2d"] == 16
+    assert counts["encode_fused.uniform_encode_pack_resid_2d"] == 8
+    assert counts["decode.uniform_decode_reduce_3d"] == 8
+    assert counts["encode_fused.uniform_encode_pack_2d"] == 8
+    assert counts["decode.uniform_decode_rows_3d"] == 1
+    assert counts["stats.bucket_stats_2d"] == 16
 
 
 def test_powersgd_training_runs_through_k11(cuda):
@@ -225,5 +299,6 @@ def test_powersgd_training_runs_through_k11(cuda):
     hist = train_synced(method="powersgd", error_feedback=True, steps=2, device="cuda")
     counts = kernels.launch_counts()
     assert len(hist) == 2 and all(h == h for h in hist)
-    assert counts["ef_correct_stats_2d"] == 16 and counts["orthogonalize_2d"] == 16
+    assert counts["encode_fused.ef_correct_stats_2d"] == 16
+    assert counts["orthogonalize.orthogonalize_2d"] == 16
     assert sum(counts.values()) == 32

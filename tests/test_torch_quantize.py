@@ -1,0 +1,150 @@
+"""The plain PyTorch versions of kernels K12–K17 (``repro_torch.kernels
+.ref``), through the port's ``kernels.ops`` wrappers on the CPU, against
+``repro.kernels.ops`` (the Pallas kernels of ``repro.kernels.quantize`` in
+interpret mode) on the same numpy inputs and the same key.
+
+Contract, per kernel:
+- K12, K14 (uniform/codebook encode) and K16, K17 (the same with the tail
+  masked and the codes packed): codes and wire words bitwise, at n = 144
+  and 200,000 (off 128) and 4,608, bits 2, 3 and 8; the words of K16/K17
+  also equal ``pack_codes`` of K12/K14's codes from the same draw;
+- K13 (``code·(2α/s) − α``): bitwise against ``repro.kernels.ref
+  .uniform_decode`` run eagerly (both round the product and the difference
+  apart), and within 4 ulp of α against the Pallas kernel, which contracts
+  the multiply-add in interpret mode — the JAX package's own contract
+  between its two versions (``tests/test_decode_kernels.py``);
+- K15 (``levels[code]``): bitwise.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.core import prng, quantizers  # noqa: E402
+from repro_torch.kernels import encode_fused, ops, quantize  # noqa: E402
+
+SIZES = [144, 4608, 200_000]
+BITS = [2, 3, 8]
+ALPHA = np.float32(0.17)
+
+
+@pytest.fixture(autouse=True)
+def same_layout():
+    """Pin JAX to the port's (original) threefry counter layout, then
+    restore it."""
+    prev = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", False)
+    yield
+    jax.config.update("jax_threefry_partitionable", prev)
+
+
+def _inputs(n: int, bits: int):
+    rng = np.random.default_rng(n * 10 + bits)
+    g = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    levels = np.sort(rng.uniform(-0.2, 0.2, 2**bits)).astype(np.float32)
+    levels[0], levels[-1] = -0.2, 0.2
+    return g, levels
+
+
+def _u32(words: torch.Tensor) -> np.ndarray:
+    return words.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_uniform_encode_kernels_match_pallas(n, bits):
+    """K12 codes, K16 codes and words."""
+    g, _ = _inputs(n, bits)
+    key = prng.key(n + bits)
+    want, (jw, jc) = jax.jit(lambda x, a, k: (jops.uniform_encode(x, a, bits, k),
+                                              jops.uniform_encode_packed(x, a, bits, k)))(
+        jnp.asarray(g), jnp.float32(ALPHA), jax.random.key(n + bits))
+    codes = ops.uniform_encode(torch.from_numpy(g), torch.tensor(ALPHA), bits, key)
+    assert codes.dtype == torch.uint8 and (codes.numpy() == np.asarray(want)).all()
+    words, pcodes = ops.uniform_encode_packed(torch.from_numpy(g), torch.tensor(ALPHA), bits, key)
+    assert (_u32(words) == np.asarray(jw)).all() and (pcodes.numpy() == np.asarray(jc)).all()
+    assert torch.equal(words, quantizers.pack_codes(codes, bits))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_codebook_encode_kernels_match_pallas(n, bits):
+    """K14 codes, K17 codes and words."""
+    g, levels = _inputs(n, bits)
+    key = prng.key(n + bits)
+    want, (jw, jc) = jax.jit(lambda x, lv, k: (jops.codebook_encode(x, lv, k),
+                                               jops.codebook_encode_packed(x, lv, bits, k)))(
+        jnp.asarray(g), jnp.asarray(levels), jax.random.key(n + bits))
+    codes = ops.codebook_encode(torch.from_numpy(g), torch.from_numpy(levels), key)
+    assert codes.dtype == torch.uint8 and (codes.numpy() == np.asarray(want)).all()
+    words, pcodes = ops.codebook_encode_packed(torch.from_numpy(g), torch.from_numpy(levels), bits,
+                                               key)
+    assert (_u32(words) == np.asarray(jw)).all() and (pcodes.numpy() == np.asarray(jc)).all()
+    assert torch.equal(words, quantizers.pack_codes(codes, bits))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_uniform_decode_kernel_matches_jax(n, bits):
+    """K13: bitwise against the eager oracle, 4 ulp of α against Pallas."""
+    codes = np.random.default_rng(n + bits).integers(0, 2**bits, n).astype(np.int32)
+    a = jnp.float32(ALPHA)
+    got = ops.uniform_decode(torch.from_numpy(codes), torch.tensor(ALPHA), bits).numpy()
+    eager = np.asarray(jref.uniform_decode(jnp.asarray(codes), a, bits))
+    assert (got.view(np.uint32) == eager.view(np.uint32)).all()
+    pallas = np.asarray(jops.uniform_decode(jnp.asarray(codes), a, bits))
+    assert (np.abs(got - pallas) <= 4 * np.spacing(ALPHA)).all()
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_codebook_decode_kernel_matches_pallas(n, bits):
+    """K15 bitwise; the port's plain version also gives 0 for a code outside
+    [0, s], as the Pallas kernel's one-hot product does."""
+    _, levels = _inputs(n, bits)
+    codes = np.random.default_rng(n + bits).integers(0, 2**bits, n).astype(np.int32)
+    got = ops.codebook_decode(torch.from_numpy(codes), torch.from_numpy(levels)).numpy()
+    want = np.asarray(jops.codebook_decode(jnp.asarray(codes), jnp.asarray(levels)))
+    assert (got.view(np.uint32) == want.view(np.uint32)).all()
+    out = ops.codebook_decode(torch.tensor([-1, 0, 2**bits - 1, 2**bits]), torch.from_numpy(levels))
+    assert out.tolist() == [0.0, float(levels[0]), float(levels[-1]), 0.0]
+
+
+def test_launch_count_keys_are_distinct():
+    """K16/K17 share their TPU names with K7/K6: the counts are keyed by
+    module and name, one key for each of the 17 kernels."""
+    names = [kernels.kernel_name(k) for k in kernels.KERNELS]
+    assert len(names) == len(set(names)) == 17
+    assert quantize.uniform_encode_pack_2d.__name__ == encode_fused.uniform_encode_pack_2d.__name__
+    for k in (quantize.uniform_encode_pack_2d, quantize.codebook_encode_pack_2d,
+              encode_fused.uniform_encode_pack_2d, encode_fused.codebook_encode_pack_2d,
+              quantize.uniform_encode_2d, quantize.uniform_decode_2d,
+              quantize.codebook_encode_2d, quantize.codebook_decode_2d):
+        assert kernels.kernel_name(k) in kernels.launch_counts()
+    assert kernels.kernel_name(quantize.codebook_encode_pack_2d) == "quantize.codebook_encode_pack_2d"
+    assert kernels.kernel_name(encode_fused.codebook_encode_pack_2d) == (
+        "encode_fused.codebook_encode_pack_2d")
+
+
+def test_quantize_kernels_refuse_cpu_tensors():
+    """The K12–K17 wrappers take CUDA tensors only; ``ops`` sends CPU
+    tensors to the plain versions without touching a launch counter."""
+    g2, alpha, levels = torch.zeros((2, 128)), torch.ones(1), torch.linspace(-1, 1, 8)
+    codes2 = torch.zeros((2, 128), dtype=torch.int32)
+    for call in (lambda: quantize.uniform_encode_2d(g2, g2, alpha, 3),
+                 lambda: quantize.codebook_encode_2d(g2, g2, levels),
+                 lambda: quantize.uniform_encode_pack_2d(g2, g2, alpha, 200, 3),
+                 lambda: quantize.codebook_encode_pack_2d(g2, g2, levels, 200, 3),
+                 lambda: quantize.uniform_decode_2d(codes2, alpha, 3),
+                 lambda: quantize.codebook_decode_2d(codes2, levels)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    before = kernels.launch_counts()
+    ops.codebook_encode_packed(torch.ones(300), levels, 3, prng.key(0))
+    ops.uniform_decode(torch.zeros(300, dtype=torch.uint8), alpha, 3)
+    assert kernels.launch_counts() == before
