@@ -12,10 +12,12 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    (206,922 elements), a full 4 MB bucket (1,048,576) and a ragged size, 8
    peers, 1, 3 and 8 bits, and at 3 bits at every shape and peer count the
    main path gives them (the padded buckets and chunks of two_phase (8,)
-   and of a (2, 4) pod, and the 2-peer cross-pod stage); K11 at the P
-   factors of smallnet's bucket (809 rows) and of a 4 MB bucket (1,024),
-   ranks 1, 3, 4 and 64, a rank-deficient factor (by reconstruction) and a
-   zero column; K12-K17 bitwise at a 4 MB tensor and at each of smallnet's
+   and of a (2, 4) pod, and the 2-peer cross-pod stage); K1/K10 also on
+   inputs that fill every bin, all zeros and all overflow at smallnet's
+   and a 4 MB bucket, through the (rows, 128) wrappers and the flat path,
+   the EF row aligned or not; K11 at the P factors of smallnet's bucket
+   (809 rows) and of a 4 MB bucket (1,024), ranks 1, 3, 4 and 64, a
+   rank-deficient factor (by reconstruction) and a zero column; K12-K17 bitwise at a 4 MB tensor and at each of smallnet's
    eight leaf sizes (10 to 200,704 elements), 2, 3 and 8 bits, with the
    per-tensor plan's α and levels, on the padded tile and through their
    ``kernels.ops`` wrappers;
@@ -38,10 +40,11 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    step on the CPU;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K11 at smallnet's and a 4 MB bucket's P factor
-   beside torch.linalg.qr, each beside its byte bound, K12/K14 at
-   smallnet's fc1.w, the phase-2 kernels at their chunk shape, one synced
-   step's wall time per sync mode and method, and one per-tensor round's
-   compression phase by phase.
+   beside torch.linalg.qr, each beside its byte bound, K1/K10, K2 and K4
+   at smallnet's bucket and K12/K14 at each of its leaf sizes, the
+   phase-2 kernels at their chunk shape, one synced step's wall time per
+   sync mode and method, and one per-tensor round's compression phase by
+   phase.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -62,7 +65,6 @@ PEERS = 8
 SLICE_N = 206_922                  # smallnet's parameters: one bucket
 FULL_N = 1_048_576                 # one full 4 MB bucket (bucket_mb=4.0)
 RAGGED_N = 100_003                 # not a multiple of 32
-FC1_N = 200_704                    # smallnet's largest leaf, fc1.w
 FP32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 STATS_RTOL = 1e-5
 GS_RTOL, GS_ATOL = 1e-5, 1e-6      # K11 against its plain version (another sum order)
@@ -277,6 +279,95 @@ def main() -> int:
             full_inputs = dict(g=g, e=e, c=[to2d(heavy(n, 1e-3)) for _ in range(PEERS)],
                                levels=levels, words3=words3, levels2=levels2,
                                alphas=alphas, uwords3=uwords3, alphas1=alphas1)
+
+    # K1/K10 on inputs that fill every bin (1% exact zeros, 1% subnormals,
+    # under- and overflow, the rest at least 0.1% off each bin edge), all
+    # zeros and all overflow (bin 127), at smallnet's bucket and a 4 MB one:
+    # through the (rows, 128) wrappers and the flat path the sync takes (no
+    # padding), the EF row also 4 bytes off a 16-byte boundary, as a row of
+    # the sync's (n_clients, s) state can lie; every launch twice
+    def stats_input(kind: str, n: int, seed: int) -> torch.Tensor:
+        cpu = torch.Generator().manual_seed(seed)
+        sign = torch.where(torch.rand(n, generator=cpu) < 0.5, -1.0, 1.0).double()
+        u = 0.01 + 0.98 * torch.rand(n, generator=cpu, dtype=torch.float64)
+        if kind == "zeros":
+            x = torch.zeros(n, dtype=torch.float64)
+        elif kind == "overflow":
+            x = sign * torch.exp2(8 + 12 * u)
+        else:
+            b = torch.randint(-8, 140, (n,), generator=cpu).double()
+            x = sign * torch.exp2(-24 + 0.25 * (b + u))
+            r = torch.rand(n, generator=cpu)
+            x[r < 0.01] = 0.0
+            sub = (r >= 0.01) & (r < 0.02)
+            x[sub] = sign[sub] * 2.0**-130 * u[sub]
+        return x.to(torch.float32).to(dev)
+
+    def exact_err(got, x, n, what, enforce=True) -> float:
+        """Rows 1, 3 and 4 against the float64 sums of the same float32
+        terms (ln|x| binned as the kernel bins it, x, x²), rtol STATS_RTOL
+        where ``enforce``; returns the largest relative error."""
+        x = x.reshape(-1)[:n]
+        ln = torch.log(torch.clamp_min(torch.abs(x), 1e-30))
+        ln2 = torch.tensor(math.log(2.0), dtype=torch.float32, device=dev)
+        b = torch.clamp(torch.floor((ln / ln2 + 24.0) / 0.25), 0, 127).long()
+        xd = x.double()
+        rel = []
+        for row, want, scale in (
+                (1, torch.zeros(128, dtype=torch.float64, device=dev).index_add_(0, b, ln.double()),
+                 None),
+                (3, xd.sum(), xd.abs().sum()), (4, (xd * xd).sum(), (xd * xd).sum())):
+            scale = torch.abs(want) if scale is None else scale
+            d = torch.abs(got[row].double() - want)
+            check(not enforce or bool((d <= STATS_RTOL * scale).all()),
+                  f"{what}: row {row} beyond rtol {STATS_RTOL} of the float64 sum "
+                  f"(max diff {float(d.max())})")
+            rel.append(float((d / torch.clamp_min(scale, 1e-300)).max()))
+        return max(rel)
+
+    exact_rel, plain_rel = {}, {}
+    for n in (SLICE_N, FULL_N):
+        for kind in ("every_bin", "zeros", "overflow"):
+            at = f"{kind} n={n}"
+            g = stats_input(kind, n, n)
+            e = stats_input(kind, n, n + 1) * 2.0**-10
+            g2, e2 = to2d(g), to2d(e)
+            s10 = kstats.bucket_stats_2d(g2, n)
+            check(torch.equal(kstats.bucket_stats_2d(g2, n), s10), f"K10 not deterministic, {at}")
+            check(torch.equal(kstats.bucket_stats_flat(g, n), s10), f"K10 flat path differs, {at}")
+            c2, s1 = kenc.ef_correct_stats_2d(g2, e2, n)
+            c2b, s1b = kenc.ef_correct_stats_2d(g2, e2, n)
+            check(torch.equal(c2b, c2) and torch.equal(s1b, s1), f"K1 not deterministic, {at}")
+            c_ref, s1_ref = ref.ef_correct_stats(g2, e2, n)
+            check(torch.equal(c2, c_ref), f"K1 corrected bucket differs, {at}")
+            # counts and max bitwise the plain version's; the sums within
+            # rtol of the float64 sums and, on the every-bin input, of the
+            # plain version's (with one bin holding every element, its own
+            # sequential per-bin sum is off by more than the rtol)
+            for name, tile, want, x2 in (
+                    ("stats.bucket_stats_2d", s10, ref.bucket_stats(g2, n), g2),
+                    ("encode_fused.ef_correct_stats_2d", s1, s1_ref, c2)):
+                what = f"{name} {at}"
+                check(torch.equal(tile[0], want[0]) and float(tile[0].sum()) == n,
+                      f"{what}: histogram counts differ")
+                check(torch.equal(tile[2], want[2]), f"{what}: max differs")
+                if kind == "every_bin":
+                    note_err(name, stats_err(tile, want, x2, n, what))
+                exact_rel[what] = exact_err(tile, x2, n, what)
+                plain_rel[what] = exact_err(want, x2, n, what, enforce=False)
+            buf = torch.zeros(n + 1, device=dev)
+            buf[1:] = e
+            for ef in (e, buf[1:], buf[1:]):
+                c, sf = kenc.ef_correct_stats_flat(g, ef, n)
+                check(torch.equal(c, c2.reshape(-1)[:n]) and torch.equal(sf, s1),
+                      f"K1 flat path differs, {at}, EF at byte offset {ef.data_ptr() % 16}")
+        torch.cuda.synchronize()
+        print(f"[parity] K1, K10 every-bin, zeros, overflow at n={n}: counts/max exact, sums "
+              f"within rtol {STATS_RTOL} (of the plain version's on every-bin, of the float64 "
+              f"sums on all), bitwise deterministic and equal through the flat path, the EF row "
+              f"16-byte aligned or 4 bytes off")
+    print(f"[parity] K1, K10 largest relative error against the float64 sums: "
+          f"{json.dumps(exact_rel)}; the plain version's: {json.dumps(plain_rel)}")
 
     # K11: the P factor of smallnet's bucket (matrix_shape(206,922) = (809,
     # 256)) and of a 4 MB bucket ((1024, 1024)), at rank 4, the rank cap 64,
@@ -755,26 +846,73 @@ def main() -> int:
                                           launches_per_step_or_round=per_step[name],
                                           library=sp.get("library_name", "none"), card=card)))
 
-    # K12 and K14 at the per-tensor path's largest leaf, fc1.w (200,704
-    # elements, 1,568 rows), one per client: L2-resident, as right after
-    # the backward pass that wrote the gradient
-    frows = -(-FC1_N // 128)
-    fg = [to2d(heavy(FC1_N, 1e-3)) for _ in range(PEERS)]
-    fr = [prng.uniform(prng.key(100 + p), (frows, 128), device=dev) for p in range(PEERS)]
-    fa = [plan(x, FC1_N, bits, "tqsgd").alpha.reshape(1).contiguous() for x in fg]
-    fl = [plan_levels(x, FC1_N, bits) for x in fg]
-    for name, fn, plain_fn, calls, nbytes in (
-            ("quantize.uniform_encode_2d", kq.uniform_encode_2d, ref.uniform_encode,
-             [(x, r, a, bits) for x, r, a in zip(fg, fr, fa)], 12 * frows * 128 + 4),
-            ("quantize.codebook_encode_2d", kq.codebook_encode_2d, ref.codebook_encode,
-             [(x, r, lv) for x, r, lv in zip(fg, fr, fl)], 12 * frows * 128 + lvb)):
+    # K10 and K1 at the main path's bucket (smallnet, 206,922 elements) as
+    # the sync launches them: on the 8 peers' flat buckets, the EF rows
+    # the rows of one (8, 206,922) state (every other one 8 bytes off a
+    # 16-byte boundary); L2-resident, as right after the backward pass
+    sg = [heavy(SLICE_N, 1e-3) for _ in range(PEERS)]
+    sstate = heavy(PEERS * SLICE_N, 1e-4).reshape(PEERS, SLICE_N)
+    sg2, se2 = [to2d(x) for x in sg], [to2d(x) for x in sstate]
+    for name, fn, plain_fn, calls, plain_calls, nbytes in (
+            ("stats.bucket_stats_2d", kstats.bucket_stats_flat, ref.bucket_stats,
+             [(x, SLICE_N) for x in sg], [(x, SLICE_N) for x in sg2], 4 * SLICE_N + tile),
+            ("encode_fused.ef_correct_stats_2d", kenc.ef_correct_stats_flat,
+             ref.ef_correct_stats, [(x, sstate[p], SLICE_N) for p, x in enumerate(sg)],
+             [(x, y, SLICE_N) for x, y in zip(sg2, se2)], 12 * SLICE_N + tile)):
         ms = graph_ms(fn, calls)
         b_ms, b_by = bound(nbytes)
         print("[time] " + json.dumps({
-            "per_tensor_leaf": name, "elements": FC1_N, "rows": frows, "bits": bits, "ms": ms,
-            "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms, "bound_by": b_by,
-            "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_round": per_step[name],
+            "main_path_bucket": name, "elements": SLICE_N, "ms": ms,
+            "plain_ms": eager_ms(plain_fn, plain_calls[:2]), "bound_ms": b_ms, "bound_by": b_by,
+            "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_step": per_step[name],
             "card": card}))
+
+    # K2 and K4 at the main path's bucket too: the 8 peers' corrected
+    # buckets encoded onto their plans, and the mean of their 8 wires
+    srows = -(-SLICE_N // 128)
+    slv = [plan_levels(x, SLICE_N, bits) for x in sg2]
+    srand = [prng.uniform(prng.key(200 + p), (srows, 128), device=dev) for p in range(PEERS)]
+    sw3 = torch.stack([kenc.codebook_encode_pack_resid_2d(x, r, lv, SLICE_N, bits)[0]
+                       for x, r, lv in zip(sg2, srand, slv)]).contiguous()
+    slv2 = torch.stack(slv).contiguous()
+    swb = srows * 4 * bits * 4
+    for name, fn, plain_fn, calls, nbytes in (
+            ("encode_fused.codebook_encode_pack_resid_2d", kenc.codebook_encode_pack_resid_2d,
+             ref.codebook_encode_pack_residual,
+             [(x, r, lv, SLICE_N, bits) for x, r, lv in zip(sg2, srand, slv)],
+             3 * 4 * SLICE_N + 4 * (2**bits) + swb),
+            ("decode.codebook_decode_reduce_3d", kdec.codebook_decode_reduce_3d,
+             ref.codebook_decode_reduce, [(sw3.clone(), slv2, bits) for _ in range(PEERS)],
+             PEERS * swb + PEERS * 4 * (2**bits) + 4 * SLICE_N)):
+        ms = graph_ms(fn, calls)
+        b_ms, b_by = bound(nbytes)
+        print("[time] " + json.dumps({
+            "main_path_bucket": name, "elements": SLICE_N, "bits": bits, "ms": ms,
+            "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms, "bound_by": b_by,
+            "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_step": per_step[name],
+            "card": card}))
+
+    # K12 and K14 at each of smallnet's leaf sizes, the shapes the
+    # per-tensor path launches them at (each size 8 launches a round, one
+    # per client): L2-resident, as right after the backward pass
+    for leaf in sorted({math.prod(sh) for sh in SMALLNET_SHAPES}):
+        frows = -(-leaf // 128)
+        fg = [to2d(heavy(leaf, 1e-3)) for _ in range(PEERS)]
+        fr = [prng.uniform(prng.key(100 + p), (frows, 128), device=dev) for p in range(PEERS)]
+        fa = [plan(x, leaf, bits, "tqsgd").alpha.reshape(1).contiguous() for x in fg]
+        fl = [plan_levels(x, leaf, bits) for x in fg]
+        for name, fn, plain_fn, calls, nbytes in (
+                ("quantize.uniform_encode_2d", kq.uniform_encode_2d, ref.uniform_encode,
+                 [(x, r, a, bits) for x, r, a in zip(fg, fr, fa)], 12 * frows * 128 + 4),
+                ("quantize.codebook_encode_2d", kq.codebook_encode_2d, ref.codebook_encode,
+                 [(x, r, lv) for x, r, lv in zip(fg, fr, fl)], 12 * frows * 128 + lvb)):
+            ms = graph_ms(fn, calls)
+            b_ms, b_by = bound(nbytes)
+            print("[time] " + json.dumps({
+                "per_tensor_leaf": name, "elements": leaf, "rows": frows, "bits": bits,
+                "ms": ms, "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms,
+                "bound_by": b_by, "x_bound": ms / b_ms, "bytes": nbytes,
+                "launches_per_round": PEERS, "card": card}))
 
     # K11 at a full 4 MB bucket's P factor: matrix_shape(1,048,576) = (1024,
     # 1024), rank 4
@@ -870,7 +1008,6 @@ def main() -> int:
     plans = [codec.plan(cfg, f, tuple(s)) for f, s in zip(flats, stats)]
     wires = [codec.encode_residual(cfg, f, pl, prng.key(p))[0] for p, (f, pl) in
              enumerate(zip(flats, plans))]
-    srows = -(-SLICE_N // 128)
     breakdown = {
         "stats_K10_x8": phase(lambda: [ops.bucket_stats(f) for f in flats]),
         "plan_x8": phase(lambda: [codec.plan(cfg, f, tuple(s)) for f, s in zip(flats, stats)]),

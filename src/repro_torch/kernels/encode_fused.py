@@ -3,7 +3,8 @@
 
 The port of ``repro.kernels.encode_fused``.  ``ef_correct_stats_2d`` reads a
 gradient bucket and its EF residual once, writes ``c = g + e`` and the
-statistics tile of c (``csrc/stats.cu`` with the EF add compiled in).  The
+statistics tile of c (``csrc/stats.cu`` with the EF add compiled in);
+``ef_correct_stats_flat`` launches it on the buffers as they lie.  The
 four encode kernels round c stochastically onto the bucket's codebook
 (``codebook_*``) or onto the uniform grid over [−α, α] (``uniform_*``),
 pack the codes into the wire words and, in the ``*_resid_2d`` flavours,
@@ -18,7 +19,7 @@ import ctypes
 import torch
 
 from . import _build
-from .stats import LANES, NUM_BINS, STATS_ROWS, check_2d, partials
+from .stats import LANES, check_2d, check_flat, tile_and_scratch
 
 
 def ef_correct_stats_2d(g2: torch.Tensor, e2: torch.Tensor, n: int):
@@ -26,22 +27,34 @@ def ef_correct_stats_2d(g2: torch.Tensor, e2: torch.Tensor, n: int):
     ((rows, 128) corrected c, (STATS_ROWS, NUM_BINS) stats tile of c)."""
     check_2d("g", g2)
     check_2d("e", e2)
-    if e2.shape != g2.shape or e2.device != g2.device:
-        raise ValueError(f"e {tuple(e2.shape)} on {e2.device} must match g "
-                         f"{tuple(g2.shape)} on {g2.device}")
-    if not 1 <= n <= g2.numel():
-        raise ValueError(f"n={n} outside [1, {g2.numel()}]")
+    if e2.shape != g2.shape:
+        raise ValueError(f"e {tuple(e2.shape)} must match g {tuple(g2.shape)}")
+    c, out = ef_correct_stats_flat(g2, e2, n)
+    return c.reshape(g2.shape), out
+
+
+def ef_correct_stats_flat(g: torch.Tensor, e: torch.Tensor, n: int):
+    """K1 on contiguous fp32 CUDA buffers of one length, as they lie (no
+    padding, any alignment) -> (flat ``c = g + e`` over the whole length,
+    stats tile of c's first n elements).  A launch of K1, counted in
+    ``ef_correct_stats_2d.launches``."""
+    check_flat("g", g)
+    check_flat("e", e, g.numel())
+    if e.device != g.device:
+        raise ValueError(f"e on {e.device} must lie on g's device {g.device}")
+    total = g.numel()
+    if not 1 <= n <= total:
+        raise ValueError(f"n={n} outside [1, {total}]")
     fn = _build.bind("stats", "repro_ef_correct_stats", [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
-    c2 = torch.empty_like(g2)
-    scratch = partials(g2)
-    out = torch.empty((STATS_ROWS, NUM_BINS), dtype=torch.float32, device=g2.device)
-    with torch.cuda.device(g2.device):
-        code = fn(_build.ptr(g2), _build.ptr(e2), _build.ptr(c2), _build.ptr(scratch),
-                  _build.ptr(out), n, g2.shape[0], _build.stream(g2))
+    c = torch.empty(total, dtype=torch.float32, device=g.device)
+    out, work = tile_and_scratch(total, g.device)
+    with torch.cuda.device(g.device):
+        code = fn(_build.ptr(g), _build.ptr(e), _build.ptr(c), _build.ptr(work), _build.ptr(out),
+                  n, total, _build.stream(g))
     _build.check(code, "ef_correct_stats_2d")
     ef_correct_stats_2d.launches += 1
-    return c2, out
+    return c, out
 
 
 ef_correct_stats_2d.launches = 0

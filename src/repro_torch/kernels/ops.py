@@ -1,11 +1,12 @@
 """Public wrappers around the port's kernels: layout, RNG draw and dispatch.
 
 The counterpart of ``repro.kernels.ops``.  Each wrapper pads a flat bucket
-to the (rows, 128) layout, draws the stochastic-rounding uniforms on that
-padded tile (element i's counters follow from i and the tile's size, exactly
-as in the JAX package), and sends the operands to the kernel when they lie
-on the card or to the plain version in ``kernels.ref`` when they lie on the
-CPU.  There is no switch between the two: the device decides, and a card
+to the (rows, 128) layout (on the card the statistics kernels K1 and K10
+take the bucket as it lies instead), draws the stochastic-rounding
+uniforms on that padded tile (element i's counters follow from i and the
+tile's size, exactly as in the JAX package), and sends the operands to
+the kernel when they lie on the card or to the plain version in
+``kernels.ref`` when they lie on the CPU.  There is no switch between the two: the device decides, and a card
 tensor either launches its kernel or raises.
 """
 from __future__ import annotations
@@ -58,27 +59,28 @@ def _stats(out: torch.Tensor) -> BucketStats:
                        g_sum=out[3, 0], g_sumsq=out[4, 0])
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
 def bucket_stats(g: torch.Tensor) -> BucketStats:
     """Histogram + Hill-sum + max/moments pass over a flat bucket (K10)."""
+    if _on_card(g):
+        return _stats(_s.bucket_stats_flat(_f32(g.reshape(-1)), g.numel()))
     g2, n = _to_2d(g)
-    out = _s.bucket_stats_2d(g2, n) if _on_card(g2) else ref.bucket_stats(g2, n)
-    return _stats(out)
+    return _stats(ref.bucket_stats(g2, n))
 
 
 def ef_correct_stats(g: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor, BucketStats]:
     """One pass: ``c = g + e`` plus the statistics of c (K1).
     Returns ``(corrected (n,) fp32, BucketStats)``."""
+    if _on_card(g):
+        c, out = _e.ef_correct_stats_flat(_f32(g.reshape(-1)), _f32(e.reshape(-1)), g.numel())
+        return c, _stats(out)
     g2, n = _to_2d(g)
     e2, _ = _to_2d(e)
-    if _on_card(g2):
-        c2, out = _e.ef_correct_stats_2d(g2, e2, n)
-    else:
-        c2, out = ref.ef_correct_stats(g2, e2, n)
+    c2, out = ref.ef_correct_stats(g2, e2, n)
     return c2.reshape(-1)[:n], _stats(out)
-
-
-def _f32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.float32).contiguous()
 
 
 def _alpha(alpha: torch.Tensor) -> torch.Tensor:

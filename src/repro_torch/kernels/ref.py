@@ -29,7 +29,7 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
 
 def bucket_stats(g2: torch.Tensor, n: int) -> torch.Tensor:
     """(rows, 128) fp32 bucket, n true elements -> (STATS_ROWS, NUM_BINS)
-    statistics tile, walking the kernel's 64-row tiles and merging their
+    statistics tile, walking the Pallas kernel's 64-row tiles and merging their
     partials in tile order (``stats._block_stats`` / ``stats._merge``).
 
     Counts and max are exact; the ln and moment sums are taken in another

@@ -10,10 +10,13 @@ K12–K17 codes, words and values bitwise (the kernels are built with
 plain version's separate ops do); K1/K10
 counts and max exact, the ln and moment sums within rtol 1e-5 (of each
 bin's sum, and of Σ|x| for the signed sum), and bitwise equal across two
-launches; K11 within rtol 1e-5 / atol 1e-6 of its plain version (the
+launches, across the (rows, 128) and the flat path and across a buffer's
+alignment; K11 within rtol 1e-5 / atol 1e-6 of its plain version (the
 sums run in another order), exact zeros for zero columns, and bitwise
 equal across two launches.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -67,6 +70,105 @@ def test_stats_kernels_match_plain(cuda, n):
     c_ref, s_ref = ref.ef_correct_stats(g2, e2, n)
     assert torch.equal(c2, c_ref)
     _assert_stats(out1, s_ref, c2, n)
+
+
+# one element, a ragged warp, one past a kernel block, smallnet's bucket and
+# one past a 4 MB bucket, ragged
+STATS_N = [1, 127, 2049, 206_922, 1_048_593]
+
+
+def _stats_input(kind: str, seed: int, n: int, device) -> torch.Tensor:
+    """``every_bin``: signed values over every bin, each at least 0.1%
+    (relative) from a bin edge, under- and overflow included, with 1% exact
+    zeros and 1% subnormals (tests/test_torch_kernels.py::_off_edge and
+    more); ``zeros``; ``overflow``: every |x| at or above 2^8 (bin 127)."""
+    gen = torch.Generator().manual_seed(seed)
+    sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0).double()
+    u = 0.01 + 0.98 * torch.rand(n, generator=gen, dtype=torch.float64)
+    if kind == "zeros":
+        x = torch.zeros(n, dtype=torch.float64)
+    elif kind == "overflow":
+        x = sign * torch.exp2(8 + 12 * u)
+    else:
+        b = torch.randint(-8, 140, (n,), generator=gen).double()
+        x = sign * torch.exp2(-24 + 0.25 * (b + u))
+        r = torch.rand(n, generator=gen)
+        x[r < 0.01] = 0.0
+        sub = (r >= 0.01) & (r < 0.02)
+        x[sub] = sign[sub] * 2.0**-130 * u[sub]
+    return x.to(torch.float32).to(device)
+
+
+def _assert_sums_exact(got, x, n):
+    """Rows 1, 3 and 4 within rtol 1e-5 of the float64 sums of the same
+    float32 terms (ln|x| binned as the kernel bins it, x, x²)."""
+    x = x.reshape(-1)[:n]
+    ln = torch.log(torch.clamp_min(torch.abs(x), 1e-30))
+    ln2 = torch.tensor(math.log(2.0), dtype=torch.float32, device=x.device)
+    b = torch.clamp(torch.floor((ln / ln2 + 24.0) / 0.25), 0, 127).long()
+    want = torch.zeros(128, dtype=torch.float64, device=x.device).index_add_(0, b, ln.double())
+    assert bool((torch.abs(got[1].double() - want) <= RTOL * torch.abs(want)).all())
+    xd = x.double()
+    assert abs(float(got[3, 0]) - float(xd.sum())) <= RTOL * float(xd.abs().sum())
+    assert abs(float(got[4, 0]) - float((xd * xd).sum())) <= RTOL * float((xd * xd).sum())
+
+
+@pytest.mark.parametrize("kind", ["every_bin", "zeros", "overflow"])
+@pytest.mark.parametrize("n", STATS_N)
+def test_stats_kernels_on_every_bin(cuda, kind, n):
+    """K10 and K1 through the (rows, 128) wrappers and the flat path, the
+    EF row at an odd offset as a row of the sync's (n_clients, s) state
+    can lie, each launched twice.  Counts and max bitwise the plain
+    version's; the sums within rtol 1e-5 of the float64 sums and, on the
+    every-bin input, of the plain version's.  With one bin holding every
+    element (zeros, overflow) the plain version's own per-bin sum is off by
+    more than that (a sequential ``index_add`` of 8,192 equal terms)."""
+    g = _stats_input(kind, n, n, cuda)
+    e = _stats_input(kind, n + 1, n, cuda) * 2.0**-10
+    g2, e2 = ops._to_2d(g)[0], ops._to_2d(e)[0]
+    c_ref, s_ref = ref.ef_correct_stats(g2, e2, n)
+    for tile, want, x2 in ((stats.bucket_stats_2d(g2, n), ref.bucket_stats(g2, n), g2),
+                           (encode_fused.ef_correct_stats_2d(g2, e2, n)[1], s_ref, c_ref)):
+        assert torch.equal(tile[0], want[0]) and float(tile[0].sum()) == n
+        assert torch.equal(tile[2], want[2]) and bool((tile[5:] == 0).all())
+        if kind == "every_bin":
+            _assert_stats(tile, want, x2, n)
+        _assert_sums_exact(tile, x2, n)
+    tile = stats.bucket_stats_2d(g2, n)
+    assert torch.equal(stats.bucket_stats_2d(g2, n), tile)
+    assert torch.equal(stats.bucket_stats_flat(g, n), tile)
+    c2, tile1 = encode_fused.ef_correct_stats_2d(g2, e2, n)
+    c2b, tile1b = encode_fused.ef_correct_stats_2d(g2, e2, n)
+    assert torch.equal(c2, c2b) and torch.equal(tile1, tile1b)
+    assert torch.equal(c2, c_ref)
+    buf = torch.zeros(n + 1, device=cuda)
+    buf[1:] = e
+    e_odd = buf[1:]
+    assert e_odd.data_ptr() % 16 != 0
+    for ef in (e, e_odd):
+        for _ in range(2):
+            c, tile_flat = encode_fused.ef_correct_stats_flat(g, ef, n)
+            assert torch.equal(c, c2.reshape(-1)[:n]) and torch.equal(tile_flat, tile1)
+    c, st = ops.ef_correct_stats(g, e_odd)
+    assert torch.equal(c, c_ref.reshape(-1)[:n])
+    assert torch.equal(torch.stack([st.counts, st.log_sums]), tile1[:2])
+    assert torch.equal(torch.stack([st.g_max, st.g_sum, st.g_sumsq]), tile1[2:5, 0])
+
+
+def test_stats_kernels_carry_inf(cuda):
+    """An infinite element lands in bin 127 with ln = inf, as in the plain
+    version; the max and the moment sums are inf."""
+    n = 5000
+    g = _stats_input("every_bin", 7, n, cuda)
+    g[17] = g[4000] = float("inf")
+    g2 = ops._to_2d(g)[0]
+    want = ref.bucket_stats(g2, n)
+    for tile in (stats.bucket_stats_2d(g2, n), stats.bucket_stats_flat(g, n),
+                 encode_fused.ef_correct_stats_2d(g2, torch.zeros_like(g2), n)[1]):
+        assert torch.equal(tile[0], want[0]) and torch.equal(tile[2:5], want[2:5])
+        assert float(tile[1, 127]) == float("inf") == float(want[1, 127])
+        assert bool((torch.abs(tile[1, :127] - want[1, :127])
+                     <= RTOL * torch.abs(want[1, :127])).all())
 
 
 @pytest.mark.parametrize("bits", [1, 3, 8])

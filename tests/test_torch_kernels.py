@@ -14,7 +14,8 @@ Contract, per kernel:
   and 4;
 - K1/K10 (EF-correct + statistics): counts exact on inputs kept at least
   0.1% (relative) from every bin edge, max exact, the ln and moment sums
-  within rtol 1e-5 (of each bin's sum, and of Σ|x| for the signed sum).
+  within rtol 1e-5 (of each bin's sum, and of Σ|x| for the signed sum);
+  also on the extremes: all zeros (bin 0), all overflow (bin 127), n = 1.
 """
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import stats as jstats  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.kernels import encode_fused as kenc  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import stats as kstats  # noqa: E402
 
@@ -58,6 +60,22 @@ def _off_edge(seed: int, n: int) -> np.ndarray:
     return x
 
 
+def _stats_input(kind: str, seed: int, n: int) -> np.ndarray:
+    """``_off_edge``, all zeros, or every |x| at or above 2^8 (bin 127)."""
+    if kind == "zeros":
+        return np.zeros(n, np.float32)
+    if kind == "overflow":
+        rng = np.random.default_rng(seed)
+        return (rng.choice([-1.0, 1.0], n) * 2.0 ** rng.uniform(8, 20, n)).astype(np.float32)
+    return _off_edge(seed, n)
+
+
+# the sizes, on off-edge inputs (ids unchanged), then the extremes
+STATS_CASES = [pytest.param("off_edge", n, id=str(n)) for n in SIZES] + [
+    pytest.param("zeros", 300, id="zeros-300"), pytest.param("overflow", 300, id="overflow-300"),
+    pytest.param("off_edge", 1, id="one-1")]
+
+
 def _pad2d(x: np.ndarray) -> np.ndarray:
     rows = -(-x.size // 128)
     out = np.zeros(rows * 128, np.float32)
@@ -80,9 +98,9 @@ def _assert_stats(got: np.ndarray, want: np.ndarray, x: np.ndarray, n: int):
     assert (got[5:] == 0).all()
 
 
-@pytest.mark.parametrize("n", SIZES)
-def test_bucket_stats_matches_pallas(n):
-    x = _off_edge(n, n)
+@pytest.mark.parametrize("kind, n", STATS_CASES)
+def test_bucket_stats_matches_pallas(kind, n):
+    x = _stats_input(kind, n, n)
     x2 = _pad2d(x)
     got = ref.bucket_stats(torch.from_numpy(x2), n).numpy()
     _assert_stats(got, np.asarray(jstats.bucket_stats_2d(jnp.asarray(x2), n, interpret=True)), x, n)
@@ -91,9 +109,9 @@ def test_bucket_stats_matches_pallas(n):
     assert torch.equal(torch.stack([s.counts, s.log_sums]), torch.from_numpy(got[:2]))
 
 
-@pytest.mark.parametrize("n", SIZES)
-def test_ef_correct_stats_matches_pallas(n):
-    x = _off_edge(n + 1, n)
+@pytest.mark.parametrize("kind, n", STATS_CASES)
+def test_ef_correct_stats_matches_pallas(kind, n):
+    x = _stats_input(kind, n + 1, n)
     e = (x * 1e-7 * np.random.default_rng(n).standard_normal(n)).astype(np.float32)
     g2, e2 = _pad2d(x - e), _pad2d(e)
     c2, got = ref.ef_correct_stats(torch.from_numpy(g2), torch.from_numpy(e2), n)
@@ -102,6 +120,21 @@ def test_ef_correct_stats_matches_pallas(n):
     _assert_stats(got.numpy(), np.asarray(want), c2.numpy().reshape(-1), n)
     c, s = ops.ef_correct_stats(torch.from_numpy(x - e), torch.from_numpy(e))
     assert torch.equal(c, c2.reshape(-1)[:n]) and torch.equal(s.g_max, got[2, 0])
+
+
+def test_ef_correct_stats_takes_ef_rows_as_they_lie():
+    """A row of an (n_clients, s) EF state at an odd offset, or a strided
+    view, gives what its contiguous copy gives, bitwise."""
+    n = 999
+    g = torch.from_numpy(_off_edge(5, n))
+    state = torch.from_numpy(1e-4 * np.random.default_rng(5).standard_normal((3, n), np.float32))
+    want_c, want = ops.ef_correct_stats(g, state[1].clone())
+    spread = torch.zeros(2 * n)
+    spread[::2] = state[1]
+    for e in (state[1], spread[::2]):
+        c, s = ops.ef_correct_stats(g, e)
+        assert torch.equal(c, want_c)
+        assert all(torch.equal(a, b) for a, b in zip(s, want))
 
 
 @pytest.mark.parametrize("bits", [1, 3, 8])
@@ -173,6 +206,10 @@ def test_cpu_tensors_take_the_plain_version_only():
     g2 = torch.zeros((2, 128))
     with pytest.raises(ValueError, match="CUDA"):
         kstats.bucket_stats_2d(g2, 200)
+    with pytest.raises(ValueError, match="CUDA"):
+        kstats.bucket_stats_flat(g2.reshape(-1), 200)
+    with pytest.raises(ValueError, match="CUDA"):
+        kenc.ef_correct_stats_flat(g2.reshape(-1), g2.reshape(-1), 200)
     before = kernels.launch_counts()
     ops.bucket_stats(torch.ones(300))
     assert kernels.launch_counts() == before
