@@ -15,12 +15,19 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    and of a (2, 4) pod, and the 2-peer cross-pod stage); K1/K10 also on
    inputs that fill every bin, all zeros and all overflow at smallnet's
    and a 4 MB bucket, through the (rows, 128) wrappers and the flat path,
-   the EF row aligned or not; K11 at the P factors of smallnet's bucket
-   (809 rows) and of a 4 MB bucket (1,024), ranks 1, 3, 4 and 64, a
-   rank-deficient factor (by reconstruction) and a zero column; K12-K17 bitwise at a 4 MB tensor and at each of smallnet's
-   eight leaf sizes (10 to 200,704 elements), 2, 3 and 8 bits, with the
-   per-tensor plan's α and levels, on the padded tile and through their
-   ``kernels.ops`` wrappers;
+   the EF row aligned or not (their sums against the plain version's on
+   every input, and against float64 sums); K11 at the P factors of
+   smallnet's bucket (809 rows), of the mixed plan's (784) and of a 4 MB
+   bucket (1,024), ranks 1, 3, 4 and 64, and at (1, 1) and (7, 3), the
+   register and the global-memory path bitwise equal where the factor fits
+   in registers ((1024, 64) takes the global path), a rank-deficient factor (by
+   reconstruction) and a zero column; K12-K17 bitwise at a 4 MB tensor and
+   at each of smallnet's eight leaf sizes (10 to 200,704 elements), 2, 3
+   and 8 bits, with the per-tensor plan's α and levels, on the padded tile
+   and through their ``kernels.ops`` wrappers; the segmented K14 (one
+   launch over many tiles) bitwise against the plain version per tile at
+   smallnet's eight leaves at 2, 3 and 8 bits, with mixed widths, and over
+   1 and 64 tiles;
 4. main path: the paper's 8-client smallnet training through
    ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
@@ -33,18 +40,20 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    implies.  Then the paper's
    per-tensor loop through ``repro_torch.train.train_clients`` with
    ``use_pallas`` (tnqsgd, tqsgd, and tnqsgd with EF; 30 rounds), each run
-   twice and held bit for bit, to 1,920 launches of K14 or K12 and none of
+   twice and held bit for bit, to 240 launches of K14 (one segmented
+   launch per client a round) or 1,920 of K12 (one per leaf) and none of
    any other kernel, and to the JAX package's final loss within ± 0.05.
    Then one synced step of the mixed plan (tnqsgd 3 bits, powersgd rank 4,
    tnqsgd 2 bits over three buckets) on the card, held against the same
    step on the CPU;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
-   (x 8 peers) shape, K11 at smallnet's and a 4 MB bucket's P factor
-   beside torch.linalg.qr, each beside its byte bound, K1/K10, K2 and K4
-   at smallnet's bucket and K12/K14 at each of its leaf sizes, the
-   phase-2 kernels at their chunk shape, one synced step's wall time per
-   sync mode and method, and one per-tensor round's compression phase by
-   phase.
+   (x 8 peers) shape, K11 at smallnet's, the mixed plan's and a 4 MB
+   bucket's P factor beside torch.linalg.qr and its global-memory path,
+   each beside its byte bound, K1/K10, K2 and K4 at smallnet's bucket,
+   K12/K14 at each of its leaf sizes and the segmented K14 over a
+   client's eight leaves beside their eight launches, the phase-2 kernels
+   at their chunk shape, one synced step's wall time per sync mode and
+   method, and one per-tensor round's compression phase by phase.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -71,15 +80,17 @@ GS_RTOL, GS_ATOL = 1e-5, 1e-6      # K11 against its plain version (another sum 
 # The JAX package's per-tensor runs (benchmarks/common.py::train_clients,
 # 8 clients, batch 32, 30 rounds, 3 bits, CompressorConfig bound to
 # use_pallas=True, the original threefry layout, on the CPU): label ->
-# (train_clients keywords, (final loss, accuracy on 2,048), the encode kernel)
+# (train_clients keywords, (final loss, accuracy on 2,048), the encode
+# kernel, its launches a round: the codebook methods one segmented K14
+# launch per client, tqsgd one K12 launch per leaf and client)
 JAX_PER_TENSOR = {
     "per_tensor_tnqsgd": (dict(method="tnqsgd"), (0.0008406252600252628, 0.99462890625),
-                          "quantize.codebook_encode_2d"),
+                          "quantize.codebook_encode_2d", 8),
     "per_tensor_tqsgd": (dict(method="tqsgd"), (0.0013530668802559376, 0.994140625),
-                         "quantize.uniform_encode_2d"),
+                         "quantize.uniform_encode_2d", 64),
     "per_tensor_tnqsgd_ef": (dict(method="tnqsgd", error_feedback=True),
                              (0.0018120473250746727, 0.99462890625),
-                             "quantize.codebook_encode_2d"),
+                             "quantize.codebook_encode_2d", 8),
 }
 OPS_ONLY = ("quantize.uniform_decode_2d", "quantize.codebook_decode_2d",
             "quantize.uniform_encode_pack_2d", "quantize.codebook_encode_pack_2d")
@@ -341,9 +352,8 @@ def main() -> int:
             c_ref, s1_ref = ref.ef_correct_stats(g2, e2, n)
             check(torch.equal(c2, c_ref), f"K1 corrected bucket differs, {at}")
             # counts and max bitwise the plain version's; the sums within
-            # rtol of the float64 sums and, on the every-bin input, of the
-            # plain version's (with one bin holding every element, its own
-            # sequential per-bin sum is off by more than the rtol)
+            # rtol of the plain version's (which sums each tile in float64,
+            # rounded once) and of the float64 sums
             for name, tile, want, x2 in (
                     ("stats.bucket_stats_2d", s10, ref.bucket_stats(g2, n), g2),
                     ("encode_fused.ef_correct_stats_2d", s1, s1_ref, c2)):
@@ -351,8 +361,9 @@ def main() -> int:
                 check(torch.equal(tile[0], want[0]) and float(tile[0].sum()) == n,
                       f"{what}: histogram counts differ")
                 check(torch.equal(tile[2], want[2]), f"{what}: max differs")
-                if kind == "every_bin":
-                    note_err(name, stats_err(tile, want, x2, n, what))
+                err = stats_err(tile, want, x2, n, what)
+                if kind == "every_bin":  # max_abs_err on the inputs of earlier runs
+                    note_err(name, err)
                 exact_rel[what] = exact_err(tile, x2, n, what)
                 plain_rel[what] = exact_err(want, x2, n, what, enforce=False)
             buf = torch.zeros(n + 1, device=dev)
@@ -363,26 +374,37 @@ def main() -> int:
                       f"K1 flat path differs, {at}, EF at byte offset {ef.data_ptr() % 16}")
         torch.cuda.synchronize()
         print(f"[parity] K1, K10 every-bin, zeros, overflow at n={n}: counts/max exact, sums "
-              f"within rtol {STATS_RTOL} (of the plain version's on every-bin, of the float64 "
-              f"sums on all), bitwise deterministic and equal through the flat path, the EF row "
+              f"within rtol {STATS_RTOL} of the plain version's and of the float64 sums, "
+              f"bitwise deterministic and equal through the flat path, the EF row "
               f"16-byte aligned or 4 bytes off")
     print(f"[parity] K1, K10 largest relative error against the float64 sums: "
           f"{json.dumps(exact_rel)}; the plain version's: {json.dumps(plain_rel)}")
 
     # K11: the P factor of smallnet's bucket (matrix_shape(206,922) = (809,
-    # 256)) and of a 4 MB bucket ((1024, 1024)), at rank 4, the rank cap 64,
-    # rank 1, and tests/test_lowrank.py's (1000, 3)
-    for rows, r in ((809, 4), (1024, 4), (1024, 64), (1000, 3), (809, 1)):
+    # 256)), of the mixed plan's 200,704-element bucket ((784, 256)) and of
+    # a 4 MB bucket ((1024, 1024)), at rank 4, the rank cap 64 (beyond the
+    # register path: the global-memory path), rank 1, tests/test_lowrank.py's
+    # (1000, 3), and the smallest shapes.  Where the factor fits in
+    # registers the global-memory path must give the same bits: both reduce
+    # in one order.
+    for rows, r in ((809, 4), (784, 4), (1024, 4), (1024, 64), (1000, 3), (809, 1), (1, 1),
+                    (7, 3)):
         p = torch.randn(rows, r, generator=gen, device=dev)
         out = korth.orthogonalize_2d(p)
         check(torch.equal(korth.orthogonalize_2d(p), out), f"K11 not deterministic at {rows}x{r}")
+        fits = korth.on_chip(p)
+        check(fits == ((rows, r) != (1024, 64)), f"K11 at {rows}x{r}: register path {fits}")
+        if fits:
+            check(torch.equal(korth._launch(p, False), out),
+                  f"K11 register and global-memory paths differ at {rows}x{r}")
         want = ref.orthogonalize(p)
         d = torch.abs(out - want)
         check(bool((d <= GS_ATOL + GS_RTOL * torch.abs(want)).all()),
               f"K11 beyond rtol {GS_RTOL} / atol {GS_ATOL} at {rows}x{r} (max {float(d.max())})")
         note_err("orthogonalize.orthogonalize_2d", float(d.max()))
-        print(f"[parity] K11 {rows}x{r}: within rtol {GS_RTOL} / atol {GS_ATOL}, max abs err "
-              f"{float(d.max()):.3e}, bitwise deterministic")
+        print(f"[parity] K11 {rows}x{r} ({'registers' if fits else 'global memory'}): within rtol "
+              f"{GS_RTOL} / atol {GS_ATOL}, max abs err {float(d.max()):.3e}, bitwise "
+              f"deterministic{', bitwise the global-memory path' if fits else ''}")
     # a rank-deficient factor: its surplus columns are normalized rounding
     # noise, so it is held by P̂ᵀP̂ = I and the reconstruction P̂P̂ᵀp = p
     p = torch.randn(809, 4, generator=gen, device=dev)
@@ -469,6 +491,38 @@ def main() -> int:
         print(f"[parity] n={n} bits=2, 3, 8: K12, K14 codes, K16, K17 codes and words, K13, K15 "
               f"values bitwise, on the tile and through kernels.ops; K16/K17 words equal "
               f"pack_codes of K12/K14's codes")
+
+    # the segmented K14: one launch over smallnet's eight leaf tiles (as
+    # one client's round gives them) at 2, 3 and 8 bits, with mixed widths
+    # (a bits_plan), over one tile and over 64, each tile's codes bitwise
+    # the plain version's, and the same through kernels.ops on flat leaves
+    leaf_sizes = [math.prod(sh) for sh in SMALLNET_SHAPES]
+    seg_cases = {f"smallnet bits={b}": (leaf_sizes, [b] * 8) for b in (2, 3, 8)}
+    seg_cases["smallnet mixed bits"] = (leaf_sizes, [2, 3, 8, 3, 2, 3, 8, 2])
+    seg_cases["1 tile"] = ([200_704], [3])
+    seg_cases["64 tiles"] = ([leaf_sizes[i % 8] for i in range(64)], [3, 2, 8, 3] * 16)
+    for label, (sizes, widths) in seg_cases.items():
+        gs = [heavy(n, 1e-3) for n in sizes]
+        keys = [prng.fold_in(prng.key(77), j) for j in range(len(gs))]
+        lvs = [compressors.plan(CompressorConfig(method="tnqsgd", bits=b), g).levels
+               for g, b in zip(gs, widths)]
+        drawn = [ops._draw(g, k) for g, k in zip(gs, keys)]
+        g2s, rands = [d[0] for d in drawn], [d[2] for d in drawn]
+        codes = kq.codebook_encode_segments(g2s, rands, lvs)
+        agree(Q["codebook_encode_2d"], codes, ref.codebook_encode_segments(g2s, rands, lvs),
+              f"segmented codes, {label}")
+        row = 0
+        for i, (g2, rand, lv) in enumerate(zip(g2s, rands, lvs)):
+            agree(Q["codebook_encode_2d"], codes[row:row + g2.shape[0]],
+                  ref.codebook_encode(g2, rand, lv), f"segmented codes of tile {i}, {label}")
+            row += g2.shape[0]
+        for i, c8 in enumerate(ops.codebook_encode_leaves(gs, lvs, keys)):
+            agree(Q["codebook_encode_2d"], c8, ops.codebook_encode(gs[i], lvs[i], keys[i]),
+                  f"ops.codebook_encode_leaves codes of leaf {i}, {label}")
+        torch.cuda.synchronize()
+        print(f"[parity] segmented K14, {label} ({len(sizes)} tiles, "
+              f"{sum(g2.shape[0] for g2 in g2s)} rows) in one launch: bitwise the plain version "
+              f"per tile and the one-tile launches through kernels.ops")
 
     # -- 4. main path -----------------------------------------------------
     from repro_torch.train import train_synced
@@ -566,16 +620,17 @@ def main() -> int:
 
     # the paper's per-tensor §V loop (train_clients): 8 clients, batch 32,
     # 30 rounds, every leaf planned by the sort-based fit and encoded
-    # through K14 (codebook methods) or K12 (uniform) with use_pallas, 8
-    # leaves x 8 clients = 64 launches a round and no other kernel.  Each
-    # run twice: the loss history and accuracy must repeat bit for bit.
+    # through K14 (codebook methods: all of a client's 8 leaves in one
+    # segmented launch, 8 a round) or K12 (uniform: 8 leaves x 8 clients =
+    # 64 launches a round) with use_pallas, and no other kernel.  Each run
+    # twice: the loss history and accuracy must repeat bit for bit.
     # Final losses: the JAX package's benchmarks.common.train_clients with
     # CompressorConfig bound to use_pallas=True under the original threefry
     # layout, 30 rounds on the CPU (JAX_PER_TENSOR).
     from repro_torch.train import train_clients
 
     rounds = 30
-    for label, (kw, (want_loss, want_acc), kernel) in JAX_PER_TENSOR.items():
+    for label, (kw, (want_loss, want_acc), kernel, per_round) in JAX_PER_TENSOR.items():
         results = []
         for _ in range(2):
             kernels.reset_launch_counts()
@@ -590,7 +645,7 @@ def main() -> int:
             print(f"[golden] {label} losses {json.dumps(hist)}")
             check(all(math.isfinite(x) for x in hist), f"{label}: non-finite loss {hist}")
             want = dict.fromkeys(launches, 0)
-            want[kernel] = 64 * rounds
+            want[kernel] = per_round * rounds
             check(counts == want, f"{label}: launches {counts}, expected {want}")
         check(results[1] == results[0], f"{label}: history or accuracy differs between two runs")
         print(f"[golden] {label} repeats bit for bit")
@@ -914,18 +969,48 @@ def main() -> int:
                 "bound_by": b_by, "x_bound": ms / b_ms, "bytes": nbytes,
                 "launches_per_round": PEERS, "card": card}))
 
-    # K11 at a full 4 MB bucket's P factor: matrix_shape(1,048,576) = (1024,
-    # 1024), rank 4
-    gs_big = [torch.randn(1024, 4, generator=gen, device=dev) for _ in range(PEERS)]
-    big_bound, big_by = bound(gs_bytes(1024, 4), gs_flops(1024, 4))
+    # the segmented K14 as the per-tensor path launches it: one launch over
+    # a client's eight leaf tiles (1,620 rows), the 8 clients' sets on
+    # distinct inputs, L2-resident; beside the same client's eight one-tile
+    # launches on the same inputs
+    leaf_sets = []
+    for c in range(PEERS):
+        lg = [to2d(heavy(leaf, 1e-3)) for leaf in leaf_sizes]
+        lr = [prng.uniform(prng.key(300 + 8 * c + j), x.shape, device=dev)
+              for j, x in enumerate(lg)]
+        leaf_sets.append((lg, lr, [plan_levels(x, leaf, bits) for x, leaf in zip(lg, leaf_sizes)]))
+    seg_rows = sum(x.shape[0] for x in leaf_sets[0][0])
+    seg_bytes = 12 * seg_rows * 128 + sum(4 * lv.numel() for lv in leaf_sets[0][2])
+    seg_ms = graph_ms(kq.codebook_encode_segments, leaf_sets)
+    b_ms, b_by = bound(seg_bytes)
     print("[time] " + json.dumps({
-        "k11_factor": [1024, 4],
-        "ms": graph_ms(korth.orthogonalize_2d, [(x,) for x in gs_big]),
-        "plain_ms": eager_ms(ref.orthogonalize, [(x,) for x in gs_big[:2]]),
-        "library_ms": eager_ms(lambda x: torch.linalg.qr(x, mode="reduced"),
-                               [(x,) for x in gs_big]),
-        "bound_ms": big_bound, "bound_by": big_by, "bytes": gs_bytes(1024, 4),
-        "flops": gs_flops(1024, 4), "library": "torch.linalg.qr", "card": card}))
+        "segmented_k14": "quantize.codebook_encode_segments", "tiles": len(leaf_sizes),
+        "rows": seg_rows, "bits": bits, "ms": seg_ms,
+        "eight_launches_ms": len(leaf_sizes) * graph_ms(
+            kq.codebook_encode_2d, [t for lg, lr, ll in leaf_sets for t in zip(lg, lr, ll)]),
+        "plain_ms": eager_ms(ref.codebook_encode_segments, leaf_sets[:2]), "bound_ms": b_ms,
+        "bound_by": b_by, "x_bound": seg_ms / b_ms, "bytes": seg_bytes,
+        "launches_per_round": PEERS, "card": card}))
+
+    # K11 at the P factors of smallnet's bucket, of the mixed plan's
+    # 200,704-element bucket (matrix_shape = (784, 256)) and of a full 4 MB
+    # bucket ((1024, 1024)), rank 4: the register path the wrapper picks,
+    # beside the global-memory path (the working factor in the output
+    # buffer, as the kernel kept it before) on the same inputs
+    for frows, fr in ((809, 4), (784, 4), (1024, 4)):
+        gs_f = [torch.randn(frows, fr, generator=gen, device=dev) for _ in range(PEERS)]
+        f_bound, f_by = bound(gs_bytes(frows, fr), gs_flops(frows, fr))
+        ms = graph_ms(korth.orthogonalize_2d, [(x,) for x in gs_f])
+        print("[time] " + json.dumps({
+            "k11_factor": [frows, fr], "ms": ms,
+            "global_path_ms": graph_ms(lambda x: korth._launch(x, False),
+                                       [(x,) for x in gs_f]),
+            "plain_ms": eager_ms(ref.orthogonalize, [(x,) for x in gs_f[:2]]),
+            "library_ms": eager_ms(lambda x: torch.linalg.qr(x, mode="reduced"),
+                                   [(x,) for x in gs_f]),
+            "bound_ms": f_bound, "bound_by": f_by, "x_bound": ms / f_bound,
+            "bytes": gs_bytes(frows, fr), "flops": gs_flops(frows, fr),
+            "library": "torch.linalg.qr", "card": card}))
 
     # the phase-2 sites: 8 peers x 131,072-element chunks of one 4 MB bucket
     # (one chunk per encode, all 8 chunks per rows decode); likely launch-bound
@@ -1048,7 +1133,9 @@ def main() -> int:
     print("[time] " + json.dumps({"powersgd_step_breakdown_ms": pbreak, "card": card}))
 
     # one per-tensor round's compression (train_clients, tnqsgd, 3 bits,
-    # use_pallas): 8 clients x smallnet's 8 leaves, phase by phase
+    # use_pallas): 8 clients x smallnet's 8 leaves, phase by phase; the
+    # encode both per leaf (64 K14 launches) and per client (8 segmented
+    # launches, as train_clients now runs it)
     tcfg = CompressorConfig(method="tnqsgd", bits=3, use_pallas=True)
     tleaves = [[heavy(math.prod(s), 1e-3).reshape(s) for s in SMALLNET_SHAPES]
                for _ in range(PEERS)]
@@ -1063,12 +1150,18 @@ def main() -> int:
         "encode_K14_with_rand_x64": phase(lambda: [
             [ops.codebook_encode(x.reshape(-1), m.levels, k) for x, m, k in zip(ls, ms, ks)]
             for ls, ms, ks in zip(tleaves, tmetas, tkeys)], 3),
+        "encode_K14_with_rand_x8": phase(lambda: [
+            ops.codebook_encode_leaves([x.reshape(-1) for x in ls], [m.levels for m in ms], ks)
+            for ls, ms, ks in zip(tleaves, tmetas, tkeys)], 3),
         "pack_x64": phase(lambda: [[pack_codes(c8, 3) for c8 in cs] for cs in tcodes], 3),
         "decode_x64": phase(lambda: [
             [compressors.decode(tcfg, w, m, tuple(x.shape)) for w, m, x in zip(ws, ms, ls)]
             for ws, ms, ls in zip(twires, tmetas, tleaves)], 3),
         "compress_decompress_x64": phase(lambda: [
             [compressors.compress_decompress(tcfg, x, k) for x, k in zip(ls, ks)]
+            for ls, ks in zip(tleaves, tkeys)], 3),
+        "compress_decompress_leaves_x8": phase(lambda: [
+            compressors.compress_decompress_leaves([tcfg] * len(ls), ls, ks)
             for ls, ks in zip(tleaves, tkeys)], 3),
     }
     print("[time] " + json.dumps({"per_tensor_round_breakdown_ms": tbreak, "card": card}))

@@ -10,9 +10,12 @@ rounding uniforms on the padded (rows, 128) tile and encodes through
 ``kernels.ops.uniform_encode``/``codebook_encode`` (kernels K12/K14 on a
 CUDA tensor, their plain versions on a CPU tensor); ``False`` runs
 ``quantizers.stochastic_encode`` in torch ops, drawing one uniform per
-element.  The two streams differ unless n is a multiple of 128.  The
-bucketed codec (``core.codecs``) ignores the flag: there the JAX package's
-two branches are bit-identical, and the device of the tensors decides.
+element.  The two streams differ unless n is a multiple of 128.
+``compress_decompress_leaves`` compresses a list of leaves, each as
+``compress_decompress`` does, with one K14 launch for all the codebook
+leaves.  The bucketed codec (``core.codecs``) ignores the flag: there the
+JAX package's two branches are bit-identical, and the device of the
+tensors decides.
 """
 from __future__ import annotations
 
@@ -149,6 +152,10 @@ def encode(cfg: CompressorConfig, g: torch.Tensor, meta: QuantMeta,
             codes = ops.codebook_encode(flat, meta.levels, key)
     else:
         codes = stochastic_encode(flat, meta, key)
+    return _wire(cfg, codes)
+
+
+def _wire(cfg: CompressorConfig, codes: torch.Tensor) -> torch.Tensor:
     return pack_codes(codes, cfg.bits) if cfg.pack else codes
 
 
@@ -183,6 +190,32 @@ def compress_decompress(cfg: CompressorConfig, g: torch.Tensor, key: torch.Tenso
     return decode(cfg, wire, meta, tuple(g.shape)).to(g.dtype)
 
 
+def compress_decompress_leaves(cfgs: list, leaves: list, keys: list) -> list:
+    """:func:`compress_decompress` of every leaf, leaf i with ``cfgs[i]``
+    and ``keys[i]``, bit for bit.  Each leaf keeps its own plan and its own
+    uniforms (drawn with its key on its padded tile); the codebook leaves
+    whose config sets ``use_pallas`` are encoded together, one segmented K14
+    launch on the card (``kernels.ops.codebook_encode_leaves``)."""
+    out = list(leaves)
+    batch = []
+    for i, (cfg, g, k) in enumerate(zip(cfgs, leaves, keys)):
+        if cfg.use_pallas and cfg.method not in _UNIFORM:
+            batch.append(i)
+        else:
+            out[i] = compress_decompress(cfg, g, k)
+    if batch:
+        from repro_torch.kernels import ops
+
+        metas = [plan(cfgs[i], leaves[i]) for i in batch]
+        flats = [leaves[i].reshape(-1).to(torch.float32) for i in batch]
+        codes = ops.codebook_encode_leaves(flats, [m.levels for m in metas],
+                                           [keys[i] for i in batch])
+        for i, meta, c in zip(batch, metas, codes):
+            out[i] = decode(cfgs[i], _wire(cfgs[i], c), meta,
+                            tuple(leaves[i].shape)).to(leaves[i].dtype)
+    return out
+
+
 def tree_compress_decompress(cfg: CompressorConfig, grads: list, key: torch.Tensor) -> list:
     """The two-stage quantizer applied independently to every leaf of a
     gradient list (``models.smallnet.tree_leaves`` order), leaf i with key
@@ -190,7 +223,7 @@ def tree_compress_decompress(cfg: CompressorConfig, grads: list, key: torch.Tens
     if cfg.method == "dsgd":
         return list(grads)
     keys = prng.split(key, len(grads))
-    return [compress_decompress(cfg, leaf, k) for leaf, k in zip(grads, keys)]
+    return compress_decompress_leaves([cfg] * len(grads), grads, keys)
 
 
 def _is_plan_entry(entry) -> bool:

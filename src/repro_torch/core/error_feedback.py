@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import prng
-from .compressors import CompressorConfig, compress_decompress
+from .compressors import CompressorConfig, compress_decompress_leaves
 
 
 def init_error(leaves: list) -> list:
@@ -25,10 +25,7 @@ def compress_with_feedback(cfg: CompressorConfig, grads: list, error: list,
     """Returns (compressed leaves to transmit, new error state); leaf i is
     compressed with key ``split(key, n_leaves)[i]``."""
     keys = prng.split(key, len(grads))
-    outs, new_errs = [], []
-    for g, e, k in zip(grads, error, keys):
-        corrected = g.to(torch.float32) + e
-        c = compress_decompress(cfg, corrected, k)
-        outs.append(c.to(g.dtype))
-        new_errs.append(corrected - c.to(torch.float32))
-    return outs, new_errs
+    corrected = [g.to(torch.float32) + e for g, e in zip(grads, error)]
+    cs = compress_decompress_leaves([cfg] * len(grads), corrected, keys)
+    return ([c.to(g.dtype) for c, g in zip(cs, grads)],
+            [x - c.to(torch.float32) for x, c in zip(corrected, cs)])

@@ -8,7 +8,7 @@
 //   decode_kernel<UNIFORM=true>               uniform_decode_2d        (K13)
 //   decode_kernel<UNIFORM=false>              codebook_decode_2d       (K15)
 //
-// Encode: for each element of the (rows, 128) tensor g with the explicit
+// Encode: for each element of a (rows, 128) tensor g with the explicit
 // uniform draw rand, select.cuh's uniform_select (alpha[0], s = 2^bits - 1)
 // or codebook_select (levels[0..s]) gives an int32 code in [0, s].  Without
 // PACK every code is written, the padding past element n included, as the
@@ -26,15 +26,26 @@
 // Bound: bytes.  Encode reads g and rand (8 B/element) and writes a 4-byte
 // code, plus bits/8 B of wire with PACK; decode reads a 4-byte code and
 // writes a 4-byte value.  A handful of float operations per element is far
-// below the card's rate.
+// below the card's rate.  The per-tensor path, though, encodes each of a
+// client's gradient leaves, most of them 1 to 36 rows: there one launch per
+// leaf costs the launch and nothing else.
 //
 // Design.  One thread per element, 256 threads a block, so a warp is one
 // 32-element wire group and each bit plane is one __ballot_sync written by
-// lane 0.  The codebook (at most 256 floats) sits in shared memory; alpha
-// is a one-element device operand, as the Pallas kernels read alpha_ref,
-// so it never travels through the host.  The arithmetic is select.cuh's,
-// shared with encode_fused.cu, so K12/K16 give K7's codes and K14/K17 K6's
-// for the same inputs.
+// lane 0.  The encode takes a table of up to 64 segments, each a (rows_i,
+// 128) g and rand with its own alpha or levels and s, passed by value as a
+// __grid_constant__ kernel parameter (no host-to-device copy, no
+// concatenation of the tiles): segment i owns a run of whole blocks, a block
+// finds its segment by a binary search of the runs' ends, and its codes
+// go to rows row0_i .. row0_i + rows_i of one (sum rows_i, 128) output.  So
+// all of a client's leaves (K14 over 8 segments) are one launch, each
+// segment's codes bitwise those of a launch on that segment alone, and the
+// single-tensor launches are the one-segment case of the same template
+// (with PACK only that case).  The codebook (at most 256 floats) sits in
+// shared memory; alpha is a one-element device operand, as the Pallas
+// kernels read alpha_ref, so it never travels through the host.  The
+// arithmetic is select.cuh's, shared with encode_fused.cu, so K12/K16 give
+// K7's codes and K14/K17 K6's for the same inputs.
 #include "select.cuh"
 
 namespace {
@@ -42,26 +53,59 @@ namespace {
 using namespace repro;
 
 constexpr int THREADS = 256;
+constexpr int MAX_SEGMENTS = 64;  // kernels/quantize.py MAX_SEGMENTS
 
-template <bool UNIFORM, bool PACK>
+// One (rows, 128) tile of an encode: its operands, its s and where its
+// codes start in the output.
+struct Segment {
+  const float* g;
+  const float* rand;
+  const float* meta;  // alpha (1,) or levels (s+1,)
+  long long row0;     // first output row of the segment's codes
+  int rows;
+  int s;
+};
+
+// CAP segments at most (2,824 bytes at 64, within the 4 KB of kernel
+// parameters); segment i owns blocks block_end[i-1] .. block_end[i] - 1.
+template <int CAP>
+struct Table {
+  Segment seg[CAP];
+  int block_end[CAP];
+  int count;
+};
+
+unsigned blocks_for(long long rows) {
+  return (unsigned)((rows * LANES + THREADS - 1) / THREADS);
+}
+
+template <bool UNIFORM, bool PACK, int CAP>
 __global__ void __launch_bounds__(THREADS)
-encode_kernel(const float* __restrict__ g, const float* __restrict__ rand,
-              const float* __restrict__ meta, int s, int bits, long long n, long long total,
+encode_kernel(const __grid_constant__ Table<CAP> t, int bits, long long n,
               int* __restrict__ codes, int* __restrict__ words) {
   __shared__ float lv[256];
+  int i = 0;  // the first segment whose run ends past this block
+  if (CAP > 1) {
+    for (int hi = t.count - 1; i < hi;) {
+      const int mid = (i + hi) / 2;
+      if (t.block_end[mid] > (int)blockIdx.x) hi = mid; else i = mid + 1;
+    }
+  }
+  const Segment& sg = t.seg[i];
   if (!UNIFORM) {
-    for (int i = threadIdx.x; i <= s; i += THREADS) lv[i] = meta[i];
+    for (int k = threadIdx.x; k <= sg.s; k += THREADS) lv[k] = sg.meta[k];
     __syncthreads();
   }
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= total) return;  // total is a multiple of 128: whole warps leave
-  int code = UNIFORM ? (int)uniform_select(g[idx], rand[idx], meta[0], s)
-                     : codebook_select(g[idx], rand[idx], lv, s).code;
+  const int first = i == 0 ? 0 : t.block_end[i - 1];
+  const long long idx = (long long)(blockIdx.x - first) * THREADS + threadIdx.x;
+  if (idx >= (long long)sg.rows * LANES) return;  // whole warps leave
+  int code = UNIFORM ? (int)uniform_select(sg.g[idx], sg.rand[idx], sg.meta[0], sg.s)
+                     : codebook_select(sg.g[idx], sg.rand[idx], lv, sg.s).code;
   if (PACK) {
     if (idx >= n) code = 0;
     ballot_pack(code, bits, words + (idx >> 5) * bits);
   }
-  codes[idx] = code;
+  codes[sg.row0 * LANES + idx] = code;
 }
 
 template <bool UNIFORM>
@@ -85,16 +129,33 @@ decode_kernel(const int* __restrict__ codes, const float* __restrict__ meta, int
   }
 }
 
-unsigned blocks_for(long long rows) {
-  return (unsigned)((rows * LANES + THREADS - 1) / THREADS);
+// Fill t from count descriptors of five int64 each (g, rand, meta
+// pointers, s, rows) and launch; segment i's codes follow segment i-1's.
+template <bool UNIFORM, bool PACK, int CAP>
+int encode(const long long* desc, int count, int bits, long long n, int* codes, int* words,
+           void* stream) {
+  if (count < 1 || count > CAP) return (int)cudaErrorInvalidValue;
+  Table<CAP> t{};
+  long long row0 = 0, blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* d = desc + 5 * i;
+    t.seg[i] = {reinterpret_cast<const float*>(d[0]), reinterpret_cast<const float*>(d[1]),
+                reinterpret_cast<const float*>(d[2]), row0, (int)d[4], (int)d[3]};
+    row0 += d[4];
+    blocks += blocks_for(d[4]);
+    t.block_end[i] = (int)blocks;
+  }
+  t.count = count;
+  encode_kernel<UNIFORM, PACK, CAP><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      t, bits, n, codes, words);
+  return (int)cudaGetLastError();
 }
 
 template <bool UNIFORM, bool PACK>
-int encode(const float* g, const float* rand, const float* meta, int s, int bits, long long n,
-           long long rows, int* codes, int* words, void* stream) {
-  encode_kernel<UNIFORM, PACK><<<blocks_for(rows), THREADS, 0, (cudaStream_t)stream>>>(
-      g, rand, meta, s, bits, n, rows * LANES, codes, words);
-  return (int)cudaGetLastError();
+int encode_one(const float* g, const float* rand, const float* meta, int s, int bits,
+               long long n, long long rows, int* codes, int* words, void* stream) {
+  const long long desc[5] = {(long long)g, (long long)rand, (long long)meta, s, rows};
+  return encode<UNIFORM, PACK, 1>(desc, 1, bits, n, codes, words, stream);
 }
 
 template <bool UNIFORM>
@@ -116,27 +177,34 @@ extern "C" {
 // K12
 int repro_uniform_encode(const float* g, const float* rand, const float* alpha, int s,
                          long long rows, int* codes, void* stream) {
-  return encode<true, false>(g, rand, alpha, s, 0, 0, rows, codes, nullptr, stream);
+  return encode_one<true, false>(g, rand, alpha, s, 0, 0, rows, codes, nullptr, stream);
 }
 
 // K14
 int repro_codebook_encode(const float* g, const float* rand, const float* levels, int s,
                           long long rows, int* codes, void* stream) {
-  return encode<false, false>(g, rand, levels, s, 0, 0, rows, codes, nullptr, stream);
+  return encode_one<false, false>(g, rand, levels, s, 0, 0, rows, codes, nullptr, stream);
+}
+
+// K14 over 1 <= count <= 64 tiles in one launch.  desc: count * 5 int64,
+// per tile its g, rand and levels pointers, s and rows; codes: (sum rows,
+// 128) int32, tile i's rows after those of tiles 0 .. i-1.
+int repro_codebook_encode_segments(const long long* desc, int count, int* codes, void* stream) {
+  return encode<false, false, MAX_SEGMENTS>(desc, count, 0, 0, codes, nullptr, stream);
 }
 
 // K16
 int repro_uniform_encode_pack_codes(const float* g, const float* rand, const float* alpha,
                                     int s, int bits, long long n, long long rows, int* codes,
                                     int* words, void* stream) {
-  return encode<true, true>(g, rand, alpha, s, bits, n, rows, codes, words, stream);
+  return encode_one<true, true>(g, rand, alpha, s, bits, n, rows, codes, words, stream);
 }
 
 // K17
 int repro_codebook_encode_pack_codes(const float* g, const float* rand, const float* levels,
                                      int s, int bits, long long n, long long rows, int* codes,
                                      int* words, void* stream) {
-  return encode<false, true>(g, rand, levels, s, bits, n, rows, codes, words, stream);
+  return encode_one<false, true>(g, rand, levels, s, bits, n, rows, codes, words, stream);
 }
 
 // K13

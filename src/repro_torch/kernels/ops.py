@@ -185,6 +185,27 @@ def codebook_encode(g: torch.Tensor, levels: torch.Tensor, key: torch.Tensor) ->
     return codes.reshape(-1)[:n].to(torch.uint8)
 
 
+def codebook_encode_leaves(gs: list, levels: list, keys: list) -> list:
+    """:func:`codebook_encode` over a list of tensors, tensor i onto
+    ``levels[i]`` with ``keys[i]``: each padded to (rows_i, 128) with its
+    uniforms drawn on that tile, then one segmented K14 launch for every
+    ``MAX_SEGMENTS`` of them (their plain version on the CPU).  Returns the
+    flat uint8 codes of each, bitwise :func:`codebook_encode`'s."""
+    drawn = [_draw(g, k) for g, k in zip(gs, keys)]
+    lvs = [_f32(lv) for lv in levels]
+    out = []
+    for a in range(0, len(drawn), _q.MAX_SEGMENTS):
+        part = drawn[a:a + _q.MAX_SEGMENTS]
+        g2s, rands = [d[0] for d in part], [d[2] for d in part]
+        encode = _q.codebook_encode_segments if _on_card(g2s[0]) else ref.codebook_encode_segments
+        codes = encode(g2s, rands, lvs[a:a + _q.MAX_SEGMENTS])
+        row = 0
+        for g2, n, _ in part:
+            out.append(codes[row:row + g2.shape[0]].reshape(-1)[:n].to(torch.uint8))
+            row += g2.shape[0]
+    return out
+
+
 def codebook_decode(codes: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     """Flat codes -> ``levels[code]`` (K15)."""
     c2, n = _to_2d(codes.to(torch.int32), torch.int32)

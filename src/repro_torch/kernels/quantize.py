@@ -12,6 +12,13 @@ element count n and pack them into the (rows, 4·bits) wire words of
 their plain PyTorch versions are in ``kernels.ref`` and the per-tensor
 wrappers in ``kernels.ops``.
 
+Every kernel here is bound by its bytes, except where the per-tensor path
+gives it a leaf of a few rows: there a launch costs the launch alone.  So
+the encode template takes a table of up to ``MAX_SEGMENTS`` tiles, each
+with its own levels, and :func:`codebook_encode_segments` encodes all of a
+client's leaves in one launch of K14 (counted as K14's), each leaf's codes
+bitwise those of :func:`codebook_encode_2d` on that leaf alone.
+
 K16 and K17 share their TPU names with K7 and K6 of ``encode_fused``;
 ``kernels.launch_counts`` keys every kernel by module and name.
 """
@@ -23,6 +30,8 @@ import torch
 
 from . import _build
 from .stats import LANES, check_2d
+
+MAX_SEGMENTS = 64        # tiles per launch of the segmented encode (csrc/quantize.cu)
 
 
 def _meta(name: str, meta: torch.Tensor, like: torch.Tensor, shape: tuple | None = None) -> int:
@@ -98,6 +107,38 @@ def codebook_encode_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tenso
     int32 codes in [0, s], the padding included."""
     s = _meta("levels", levels, g2)
     return _encode(codebook_encode_2d, "repro_codebook_encode", g2, rand, levels, s)
+
+
+def codebook_encode_segments(g2s: list, rands: list, levels: list) -> torch.Tensor:
+    """K14 over 1 to ``MAX_SEGMENTS`` tiles in one launch: tile i's g and
+    rand (rows_i, 128) fp32 CUDA, its levels (s_i+1,) fp32 -> (Σ rows_i, 128)
+    int32 codes, tile i's in rows Σ_{k<i} rows_k onward; each tile's codes
+    equal :func:`codebook_encode_2d`'s on it alone.  One launch, counted in
+    ``codebook_encode_2d.launches``."""
+    k = len(g2s)
+    if not 1 <= k <= MAX_SEGMENTS or len(rands) != k or len(levels) != k:
+        raise ValueError(f"need 1 to {MAX_SEGMENTS} tiles, each with rand and levels; got "
+                         f"{k} g, {len(rands)} rand, {len(levels)} levels")
+    for i, (g2, rand) in enumerate(zip(g2s, rands)):
+        if rand.shape != g2.shape or g2.device != g2s[0].device or rand.device != g2.device:
+            raise ValueError(f"tile {i}: rand must match g in shape, and every tile must lie "
+                             f"on {g2s[0].device}")
+    desc = []
+    for i, (g2, rand, lv) in enumerate(zip(g2s, rands, levels)):
+        check_2d(f"g[{i}]", g2)
+        check_2d(f"rand[{i}]", rand)
+        s = _meta(f"levels[{i}]", lv, g2)
+        desc += [g2.data_ptr(), rand.data_ptr(), lv.data_ptr(), s, g2.shape[0]]
+    dev = g2s[0].device
+    codes = torch.empty((sum(g2.shape[0] for g2 in g2s), LANES), dtype=torch.int32, device=dev)
+    fn = _build.bind("quantize", "repro_codebook_encode_segments", [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        code = fn((ctypes.c_longlong * len(desc))(*desc), k, _build.ptr(codes),
+                  _build.stream(g2s[0]))
+    _build.check(code, "codebook_encode_segments")
+    codebook_encode_2d.launches += 1
+    return codes
 
 
 def uniform_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor, n: int,

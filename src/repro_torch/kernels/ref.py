@@ -32,8 +32,10 @@ def bucket_stats(g2: torch.Tensor, n: int) -> torch.Tensor:
     statistics tile, walking the Pallas kernel's 64-row tiles and merging their
     partials in tile order (``stats._block_stats`` / ``stats._merge``).
 
-    Counts and max are exact; the ln and moment sums are taken in another
-    order than the kernel's, so they agree to float32 rounding.
+    Counts and max are exact.  Each tile's ln and moment sums are taken in
+    float64 and rounded to float32 once, then merged in tile order: a
+    float32 sum over a tile whose 8,192 elements share one bin drifts by
+    1e-4 of its value, beyond the kernels' rtol.
     """
     flat = g2.reshape(-1).to(torch.float32)
     m = S.BLOCK_ROWS * S.LANES
@@ -50,16 +52,16 @@ def bucket_stats(g2: torch.Tensor, n: int) -> torch.Tensor:
     # invalid elements go to a spare bin NUM_BINS that is dropped
     b = torch.where(valid, b, S.NUM_BINS)
     slot = torch.arange(blocks, device=flat.device).repeat_interleave(m) * (S.NUM_BINS + 1) + b
-    hist = torch.zeros(blocks * (S.NUM_BINS + 1), dtype=torch.float32, device=flat.device)
-    counts = hist.index_add(0, slot, vmask).reshape(blocks, -1)[:, :S.NUM_BINS]
-    logsum = hist.index_add(0, slot, lnab * vmask).reshape(blocks, -1)[:, :S.NUM_BINS]
-    gv = (x * vmask).reshape(blocks, m)
+    hist = torch.zeros(blocks * (S.NUM_BINS + 1), dtype=torch.float64, device=flat.device)
+    counts = hist.index_add(0, slot, vmask.double()).reshape(blocks, -1)[:, :S.NUM_BINS]
+    logsum = hist.index_add(0, slot, (lnab * vmask).double()).reshape(blocks, -1)[:, :S.NUM_BINS]
+    gv = (x * vmask).reshape(blocks, m).double()
     part = torch.zeros((blocks, S.STATS_ROWS, S.NUM_BINS), dtype=torch.float32, device=flat.device)
-    part[:, 0] = counts
-    part[:, 1] = logsum
+    part[:, 0] = counts.float()
+    part[:, 1] = logsum.float()
     part[:, 2] = gabs.reshape(blocks, m).amax(1, keepdim=True)
-    part[:, 3] = gv.sum(1, keepdim=True)
-    part[:, 4] = (gv * gv).sum(1, keepdim=True)
+    part[:, 3] = gv.sum(1, keepdim=True).float()
+    part[:, 4] = (gv * gv).sum(1, keepdim=True).float()
     acc = torch.zeros((S.STATS_ROWS, S.NUM_BINS), dtype=torch.float32, device=flat.device)
     for i in range(blocks):
         nxt = acc + part[i]
@@ -170,6 +172,12 @@ def codebook_encode(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor) 
     """K14: (rows, 128) g + uniforms + (s+1,) codebook -> (rows, 128) int32
     codes, the padding past n encoded too."""
     return _codebook_select(g2, rand, levels)[0].to(torch.int32)
+
+
+def codebook_encode_segments(g2s: list, rands: list, levels: list) -> torch.Tensor:
+    """Segmented K14: :func:`codebook_encode` on each (rows_i, 128) tile with
+    its own uniforms and codebook, the codes stacked into (Σ rows_i, 128)."""
+    return torch.cat([codebook_encode(g2, rand, lv) for g2, rand, lv in zip(g2s, rands, levels)])
 
 
 def uniform_encode_pack_codes(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,

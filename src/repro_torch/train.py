@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.codecs import bucket_state_sizes
-from repro_torch.core.compressors import CompressorConfig, compress_decompress, plan_buckets
+from repro_torch.core.compressors import (CompressorConfig, compress_decompress_leaves,
+                                             plan_buckets)
 from repro_torch.core.error_feedback import compress_with_feedback, init_error
 from repro_torch.data.synthetic import client_batches, make_templates, shapes_batch
 from repro_torch.dist.reference import reference_sync, reference_sync_state
@@ -167,14 +168,14 @@ def train_clients(method: str, bits: int, *, rounds: int = 80, n_clients: int = 
                 key = prng.fold_in(prng.key(7), i * n_clients + c)
                 if error_feedback and bits_plan is None:
                     g, errs[c] = compress_with_feedback(ccfg, g, errs[c], key)
-                elif error_feedback:
-                    corrected = [x.to(torch.float32) + e for x, e in zip(g, errs[c])]
-                    g = [compress_decompress(leaf_cfgs[j], x, prng.fold_in(key, j))
-                         for j, x in enumerate(corrected)]
-                    errs[c] = [x - y for x, y in zip(corrected, g)]
                 else:
-                    g = [compress_decompress(leaf_cfgs[j], x, prng.fold_in(key, j))
-                         for j, x in enumerate(g)]
+                    keys = [prng.fold_in(key, j) for j in range(n_leaves)]
+                    if error_feedback:
+                        corrected = [x.to(torch.float32) + e for x, e in zip(g, errs[c])]
+                        g = compress_decompress_leaves(leaf_cfgs, corrected, keys)
+                        errs[c] = [x - y for x, y in zip(corrected, g)]
+                    else:
+                        g = compress_decompress_leaves(leaf_cfgs, g, keys)
             grads.append(g)
         gmean = [_mean([g[j] for g in grads]) for j in range(n_leaves)]
         params, state = opt.update(params, tree_unflatten(params, gmean), state)

@@ -230,6 +230,44 @@ def test_compress_with_feedback_matches(use_pallas):
         _within_rounding(o.numpy(), np.asarray(wo), levels, float(np.abs(x).max()))
 
 
+# smallnet's leaves but its 200,704-element fc1 weight, in tree_leaves order
+LEAF_SHAPES = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (10,), (128, 10)]
+
+
+@pytest.mark.parametrize("case", ["tnqsgd", "bits_plan", "ef"])
+def test_compress_decompress_leaves_equals_per_leaf_loop(case):
+    """``compress_decompress_leaves`` (one segmented K14 for the codebook
+    leaves) against a loop of ``compress_decompress``, bit for bit on the
+    CPU: tnqsgd at one width, a bits_plan with mixed widths and methods
+    (uniform and dsgd leaves take the per-leaf path), and error feedback
+    (``compress_with_feedback`` against the loop on the corrected leaves)."""
+    rng = np.random.default_rng(8)
+    leaves = [torch.from_numpy((1e-2 * rng.standard_normal(s)).astype(np.float32))
+              for s in LEAF_SHAPES]
+    base = compressors.CompressorConfig(method="tnqsgd", bits=3, use_pallas=True)
+    cfgs = [base] * len(leaves)
+    if case == "bits_plan":
+        cfgs = [compressors.CompressorConfig(method=m, bits=b, use_pallas=True) for m, b in
+                (("tnqsgd", 2), ("tnqsgd", 8), ("tbqsgd", 3), ("tqsgd", 3), ("dsgd", 3),
+                 ("nqsgd", 4), ("tnqsgd", 1))]
+    key = prng.key(6)
+    if case == "ef":
+        errs = [torch.from_numpy((1e-3 * rng.standard_normal(s)).astype(np.float32))
+                for s in LEAF_SHAPES]
+        got, new_errs = error_feedback.compress_with_feedback(base, leaves, errs, key)
+        corrected = [x + e for x, e in zip(leaves, errs)]
+        want = [compressors.compress_decompress(base, x, k)
+                for x, k in zip(corrected, prng.split(key, len(leaves)))]
+        for e, x, w in zip(new_errs, corrected, want):
+            assert torch.equal(e, x - w)
+    else:
+        keys = [prng.fold_in(key, j) for j in range(len(leaves))]
+        got = compressors.compress_decompress_leaves(cfgs, leaves, keys)
+        want = [compressors.compress_decompress(c, x, k) for c, x, k in zip(cfgs, leaves, keys)]
+    for g, w, x in zip(got, want, leaves):
+        assert g.shape == x.shape and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("error_feedback", [False, True])
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_train_clients_matches_jax(use_pallas, error_feedback, monkeypatch):

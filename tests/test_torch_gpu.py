@@ -13,7 +13,9 @@ bin's sum, and of Σ|x| for the signed sum), and bitwise equal across two
 launches, across the (rows, 128) and the flat path and across a buffer's
 alignment; K11 within rtol 1e-5 / atol 1e-6 of its plain version (the
 sums run in another order), exact zeros for zero columns, and bitwise
-equal across two launches.
+equal across two launches, the register and the global-memory path bitwise
+equal; the segmented K14 bitwise equal to its plain version and to the
+one-tile kernel on each tile.
 """
 import math
 
@@ -31,9 +33,10 @@ pytestmark = pytest.mark.gpu
 SIZES = [999, 64 * 128 * 2 + 17, 70_000]
 RTOL = 1e-5
 # tests/test_lowrank.py's shapes, then smallnet's and a full 4 MB bucket's P
-# factor (809 and 1,024 rows) at rank 4, the rank cap 64 and rank 1
+# factor (809 and 1,024 rows) at rank 4, the rank cap 64 and rank 1, the
+# mixed plan's (784, 4) and the smallest shapes
 GS_SHAPES = [(8, 4), (128, 8), (1000, 3), (7, 7), (513, 16), (809, 4), (1024, 4), (1024, 64),
-             (809, 1)]
+             (809, 1), (784, 4), (1, 1), (7, 3)]
 
 
 @pytest.fixture
@@ -314,6 +317,51 @@ def test_quantize_kernels_reject_bad_operands(cuda):
             call()
 
 
+@pytest.mark.parametrize("case", ["smallnet-2", "smallnet-3", "smallnet-8", "mixed", "one",
+                                  "sixty-four"])
+def test_segmented_codebook_encode_bitwise(cuda, case):
+    """The segmented K14 in one launch against the plain version per tile
+    and against the one-tile kernel: smallnet's eight leaf tiles at one
+    width, with mixed widths (a bits_plan), one tile, and 64 tiles."""
+    from repro_torch.core.compressors import CompressorConfig, plan
+
+    sizes = [16, 144, 32, 4608, 128, 200_704, 10, 1280]
+    widths = {"mixed": [2, 3, 8, 3, 2, 3, 8, 2], "one": [3], "sixty-four": [3, 2, 8, 3] * 16}
+    bits = widths[case] if case in widths else [int(case.rsplit("-", 1)[-1])] * 8
+    sizes = {"one": [200_704], "sixty-four": [sizes[i % 8] for i in range(64)]}.get(case, sizes)
+    gen = torch.Generator(device=cuda).manual_seed(len(bits) * 10 + bits[0])
+    g2s, rands, lvs = [], [], []
+    for i, (n, b) in enumerate(zip(sizes, bits)):
+        g = _heavy(gen, n, cuda, 0.05)
+        g2s.append(ops._to_2d(g)[0])
+        rands.append(prng.uniform(prng.key(100 + i), g2s[-1].shape, device=cuda))
+        lvs.append(plan(CompressorConfig(method="tnqsgd", bits=b), g).levels)
+    kernels.reset_launch_counts()
+    codes = quantize.codebook_encode_segments(g2s, rands, lvs)
+    assert kernels.launch_counts()["quantize.codebook_encode_2d"] == 1
+    assert torch.equal(codes, ref.codebook_encode_segments(g2s, rands, lvs))
+    row = 0
+    for g2, rand, lv in zip(g2s, rands, lvs):
+        assert torch.equal(codes[row:row + g2.shape[0]], quantize.codebook_encode_2d(g2, rand, lv))
+        row += g2.shape[0]
+
+
+def test_segmented_codebook_encode_rejects_bad_tables(cuda):
+    g2, lv = torch.zeros((4, 128), device=cuda), torch.linspace(-1, 1, 8, device=cuda)
+    kernels.reset_launch_counts()
+    for call in (lambda: quantize.codebook_encode_segments([g2] * 65, [g2] * 65, [lv] * 65),
+                 lambda: quantize.codebook_encode_segments([g2, g2], [g2, g2[:2]], [lv, lv]),
+                 lambda: quantize.codebook_encode_segments([g2, g2.cpu()], [g2, g2.cpu()],
+                                                           [lv, lv]),
+                 lambda: quantize.codebook_encode_segments([g2, g2], [g2, g2],
+                                                           [lv, torch.ones(257, device=cuda)]),
+                 lambda: quantize.codebook_encode_segments([g2, g2.double()], [g2, g2.double()],
+                                                           [lv, lv])):
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launch_counts()["quantize.codebook_encode_2d"] == 0
+
+
 def test_per_tensor_training_runs_through_k12_and_k14(cuda):
     from repro_torch.train import train_clients
 
@@ -324,7 +372,9 @@ def test_per_tensor_training_runs_through_k12_and_k14(cuda):
                                   device="cuda")
         counts = kernels.launch_counts()
         assert len(hist) == 1 and hist[0] == hist[0] and 0.0 <= acc <= 1.0
-        assert counts[name] == 64 and sum(counts.values()) == 64
+        # tnqsgd: one segmented K14 launch per client; tqsgd: K12 per leaf
+        want = 8 if method == "tnqsgd" else 64
+        assert counts[name] == want and sum(counts.values()) == want
 
 
 @pytest.mark.parametrize("shape", GS_SHAPES)
@@ -334,6 +384,20 @@ def test_orthogonalize_kernel_matches_plain(cuda, shape):
     out = orthogonalize.orthogonalize_2d(p)
     assert torch.equal(orthogonalize.orthogonalize_2d(p), out)
     torch.testing.assert_close(out, ref.orthogonalize(p), rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", GS_SHAPES)
+def test_orthogonalize_paths_agree_bitwise(cuda, shape):
+    """The register and the global-memory path reduce in one order: the
+    same bits wherever the factor fits in registers (every main-path shape;
+    (513, 16) and (1024, 64) take the global path)."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] * 7 + shape[1])
+    p = torch.randn(*shape, generator=gen, device=cuda)
+    glob = orthogonalize._launch(p, False)
+    assert orthogonalize.on_chip(p) == (shape not in ((513, 16), (1024, 64)))
+    if orthogonalize.on_chip(p):
+        assert torch.equal(orthogonalize._launch(p, True), glob)
+    assert torch.equal(orthogonalize.orthogonalize_2d(p), glob)
 
 
 def test_orthogonalize_kernel_zero_and_dependent_columns(cuda):

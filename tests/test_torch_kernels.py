@@ -122,6 +122,29 @@ def test_ef_correct_stats_matches_pallas(kind, n):
     assert torch.equal(c, c2.reshape(-1)[:n]) and torch.equal(s.g_max, got[2, 0])
 
 
+@pytest.mark.parametrize("kind", ["zeros", "overflow"])
+def test_bucket_stats_one_bin_within_rtol_of_float64(kind):
+    """With every element of a bucket in one bin (smallnet's 206,922), the
+    plain version's ln and moment sums stay within rtol 1e-5 of the float64
+    sums of the same float32 terms: each tile sums in float64, rounded
+    once (a float32 per-tile sum drifted by 1.12e-4 here).  The terms are
+    the plain version's own: torch's CPU ``log`` over the same 8,192-element
+    tiles (one worker thread's chunk of it has been seen to differ from
+    ``np.log`` by up to 1.4e-4, ROADMAP Queue 3 F5), so only the sums are
+    held."""
+    n = 206_922
+    x = _stats_input(kind, 11, n)
+    got = ref.bucket_stats(torch.from_numpy(_pad2d(x)), n).numpy()
+    tiles = np.zeros(-(-n // 8192) * 8192, np.float32)
+    tiles[:n] = np.abs(x)
+    ln = torch.log(torch.clamp_min(torch.from_numpy(tiles), 1e-30)).numpy()[:n].astype(np.float64)
+    xd = x.astype(np.float64)
+    assert got[0, 0 if kind == "zeros" else 127] == n
+    np.testing.assert_allclose(got[1].sum(), ln.sum(), rtol=RTOL, atol=0)
+    assert abs(got[3, 0] - xd.sum()) <= RTOL * np.abs(xd).sum()
+    np.testing.assert_allclose(got[4, 0], (xd * xd).sum(), rtol=RTOL, atol=0)
+
+
 def test_ef_correct_stats_takes_ef_rows_as_they_lie():
     """A row of an (n_clients, s) EF state at an odd offset, or a strided
     view, gives what its contiguous copy gives, bitwise."""

@@ -115,6 +115,60 @@ def test_codebook_decode_kernel_matches_pallas(n, bits):
     assert out.tolist() == [0.0, float(levels[0]), float(levels[-1]), 0.0]
 
 
+# smallnet's eight leaf sizes, in tree_leaves order
+LEAF_SIZES = [16, 144, 32, 4608, 128, 200_704, 10, 1280]
+
+
+def test_segmented_codebook_encode_plain_bitwise():
+    """The segmented plain K14 (one tile per leaf, each with its own
+    codebook: s = 3, 7 and 255 mixed, as a bits_plan gives) stacks each
+    tile's ``ref.codebook_encode`` codes bit for bit, and
+    ``ops.codebook_encode_leaves`` returns ``ops.codebook_encode``'s codes of
+    every leaf, past ``MAX_SEGMENTS`` leaves too."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(5)
+    bits = [2, 3, 8, 3, 2, 3, 8, 2]
+    gs = [torch.from_numpy((0.1 * rng.standard_normal(n)).astype(np.float32))
+          for n in LEAF_SIZES]
+    lvs = [torch.from_numpy(_inputs(n, b)[1]) for n, b in zip(LEAF_SIZES, bits)]
+    keys = [prng.fold_in(prng.key(9), j) for j in range(len(gs))]
+    drawn = [ops._draw(g, k) for g, k in zip(gs, keys)]
+    g2s, rands = [d[0] for d in drawn], [d[2] for d in drawn]
+    codes = ref.codebook_encode_segments(g2s, rands, lvs)
+    assert codes.shape == (sum(g2.shape[0] for g2 in g2s), 128) and codes.dtype == torch.int32
+    row = 0
+    for g2, rand, lv in zip(g2s, rands, lvs):
+        assert torch.equal(codes[row:row + g2.shape[0]], ref.codebook_encode(g2, rand, lv))
+        row += g2.shape[0]
+    before = kernels.launch_counts()
+    small = [g[:n] for g in gs for n in (10, 130)] * 5        # 80 leaves: two launches' worth
+    slv = [lv for lv in lvs for _ in (0, 1)] * 5
+    skeys = [prng.fold_in(prng.key(10), j) for j in range(len(small))]
+    for i, c in enumerate(ops.codebook_encode_leaves(small, slv, skeys) +
+                          ops.codebook_encode_leaves(gs, lvs, keys)):
+        g, lv, k = (small[i], slv[i], skeys[i]) if i < len(small) else (
+            gs[i - len(small)], lvs[i - len(small)], keys[i - len(small)])
+        assert torch.equal(c, ops.codebook_encode(g, lv, k))
+    assert kernels.launch_counts() == before
+
+
+def test_segmented_codebook_encode_rejects_bad_tables():
+    """The segmented K14 wrapper refuses CPU tensors, a tile whose rand does
+    not match its g, and more than ``MAX_SEGMENTS`` tiles."""
+    g2, lv = torch.zeros((2, 128)), torch.linspace(-1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize.codebook_encode_segments([g2, g2], [g2, g2], [lv, lv])
+    with pytest.raises(ValueError, match="rand must match"):
+        quantize.codebook_encode_segments([g2, g2], [g2, g2[:1]], [lv, lv])
+    k = quantize.MAX_SEGMENTS + 1
+    for tiles in ([], [g2] * k):
+        with pytest.raises(ValueError, match="tiles"):
+            quantize.codebook_encode_segments(tiles, tiles, [lv] * len(tiles))
+    with pytest.raises(ValueError, match="tiles"):
+        quantize.codebook_encode_segments([g2, g2], [g2, g2], [lv])
+
+
 def test_launch_count_keys_are_distinct():
     """K16/K17 share their TPU names with K7/K6: the counts are keyed by
     module and name, one key for each of the 17 kernels."""
