@@ -24,10 +24,13 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    reconstruction) and a zero column; K12-K17 bitwise at a 4 MB tensor and
    at each of smallnet's eight leaf sizes (10 to 200,704 elements), 2, 3
    and 8 bits, with the per-tensor plan's α and levels, on the padded tile
-   and through their ``kernels.ops`` wrappers; the segmented K14 (one
-   launch over many tiles) bitwise against the plain version per tile at
-   smallnet's eight leaves at 2, 3 and 8 bits, with mixed widths, and over
-   1 and 64 tiles;
+   and through their ``kernels.ops`` wrappers; the segmented K14 and K12
+   (one launch over many tiles) bitwise against the plain version per tile
+   at smallnet's eight leaves at 2, 3 and 8 bits, with mixed widths, and
+   over 1 and 64 tiles; K4, K5, K8 and K9 also bitwise the serial body they
+   replaced and equal from the stacked wire as it lies (strided rows or
+   contiguous), at every case above and on random wires at bits 1, 2, 3, 4
+   and 8 over 1, 3, 8, 9 and 16 peers;
 4. main path: the paper's 8-client smallnet training through
    ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
@@ -40,20 +43,23 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    implies.  Then the paper's
    per-tensor loop through ``repro_torch.train.train_clients`` with
    ``use_pallas`` (tnqsgd, tqsgd, and tnqsgd with EF; 30 rounds), each run
-   twice and held bit for bit, to 240 launches of K14 (one segmented
-   launch per client a round) or 1,920 of K12 (one per leaf) and none of
-   any other kernel, and to the JAX package's final loss within ± 0.05.
+   twice and held bit for bit, to 240 launches of K14 or K12 (one
+   segmented launch per client a round) and none of any other kernel, and
+   to the JAX package's final loss within ± 0.05.
    Then one synced step of the mixed plan (tnqsgd 3 bits, powersgd rank 4,
    tnqsgd 2 bits over three buckets) on the card, held against the same
    step on the CPU;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
-   (x 8 peers) shape, K11 at smallnet's, the mixed plan's and a 4 MB
+   (x 8 peers) shape, K4, K5, K8 and K9 beside the serial body they
+   replaced (in turns), K11 at smallnet's, the mixed plan's and a 4 MB
    bucket's P factor beside torch.linalg.qr and its global-memory path,
-   each beside its byte bound, K1/K10, K2 and K4 at smallnet's bucket,
-   K12/K14 at each of its leaf sizes and the segmented K14 over a
-   client's eight leaves beside their eight launches, the phase-2 kernels
-   at their chunk shape, one synced step's wall time per sync mode and
-   method, and one per-tensor round's compression phase by phase.
+   each beside its byte bound, K1/K10 at smallnet's bucket, K2-K9 at
+   smallnet's bucket and two_phase chunk (the decodes beside the serial
+   body), K12/K14 at each of its leaf sizes and the segmented K14 and K12
+   over a client's eight leaves beside their eight launches, the phase-2
+   kernels at a 4 MB bucket's chunk shape, one synced step's wall time per
+   sync mode and method, and one per-tensor round's compression phase by
+   phase.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -81,13 +87,13 @@ GS_RTOL, GS_ATOL = 1e-5, 1e-6      # K11 against its plain version (another sum 
 # 8 clients, batch 32, 30 rounds, 3 bits, CompressorConfig bound to
 # use_pallas=True, the original threefry layout, on the CPU): label ->
 # (train_clients keywords, (final loss, accuracy on 2,048), the encode
-# kernel, its launches a round: the codebook methods one segmented K14
-# launch per client, tqsgd one K12 launch per leaf and client)
+# kernel, its launches a round: one segmented launch per client, K14 for
+# the codebook methods, K12 for tqsgd)
 JAX_PER_TENSOR = {
     "per_tensor_tnqsgd": (dict(method="tnqsgd"), (0.0008406252600252628, 0.99462890625),
                           "quantize.codebook_encode_2d", 8),
     "per_tensor_tqsgd": (dict(method="tqsgd"), (0.0013530668802559376, 0.994140625),
-                         "quantize.uniform_encode_2d", 64),
+                         "quantize.uniform_encode_2d", 8),
     "per_tensor_tnqsgd_ef": (dict(method="tnqsgd", error_feedback=True),
                              (0.0018120473250746727, 0.99462890625),
                              "quantize.codebook_encode_2d", 8),
@@ -211,6 +217,28 @@ def main() -> int:
         return float(torch.abs(got - want).max())
 
     max_err = {kernels.kernel_name(k): 0.0 for k in kernels.KERNELS}
+    from repro_torch.core.quantizers import pack_codes, packed_size
+
+    DECODES = {kdec.codebook_decode_reduce_3d: (ref.codebook_decode_reduce, False, True),
+               kdec.uniform_decode_reduce_3d: (ref.uniform_decode_reduce, True, True),
+               kdec.codebook_decode_rows_3d: (ref.codebook_decode_rows, False, False),
+               kdec.uniform_decode_rows_3d: (ref.uniform_decode_rows, True, False)}
+
+    def decode_parity(kernel, words3, meta, n: int, bits: int, at: str) -> None:
+        """A decode kernel on the padded words bitwise its plain version and
+        the serial body it replaced, and the same bits from the stacked wire
+        as the codec leaves it: strided rows (the padded words' own rows
+        sliced to packed_size) and a copy with every row contiguous."""
+        plain, uniform, reduce = DECODES[kernel]
+        name = kernels.kernel_name(kernel)
+        got = kernel(words3, meta, bits)
+        agree(name, got, plain(words3, meta, bits), at)
+        agree(name, got, kdec.serial_3d(uniform, reduce, words3, meta, bits),
+              f"against the serial body, {at}")
+        strided = words3.reshape(words3.shape[0], -1)[:, :packed_size(n, bits)]
+        for wire in (strided, strided.contiguous()):
+            agree(name, kdec.from_wire(kernel, wire, meta, n, bits), got,
+                  f"from the wire (row stride {wire.stride(0)}), {at}")
     # (elements, bits, peers): the convention shapes, then the main path's
     # own at 3 bits.  two_phase (8,) encodes smallnet's bucket padded for 8
     # chunks and decodes, re-encodes and row-decodes its chunks over 8
@@ -269,27 +297,44 @@ def main() -> int:
             alphas.append(alpha)
         words3 = torch.stack(words).contiguous()
         levels2 = torch.stack(levels).contiguous()
-        mean = kdec.codebook_decode_reduce_3d(words3, levels2, bits)
-        check(torch.equal(mean, ref.codebook_decode_reduce(words3, levels2, bits)),
-              f"K4 mean differs at n={n} bits={bits}")
         uwords3, alphas1 = torch.stack(uwords).contiguous(), torch.cat(alphas)
         cwords3 = torch.stack(cwords).contiguous()
-        agree("decode.uniform_decode_reduce_3d",
-              kdec.uniform_decode_reduce_3d(uwords3, alphas1, bits),
-              ref.uniform_decode_reduce(uwords3, alphas1, bits), f"mean at {at}")
-        agree("decode.uniform_decode_rows_3d", kdec.uniform_decode_rows_3d(uwords3, alphas1, bits),
-              ref.uniform_decode_rows(uwords3, alphas1, bits), f"rows at {at}")
-        agree("decode.codebook_decode_rows_3d",
-              kdec.codebook_decode_rows_3d(cwords3, levels2, bits),
-              ref.codebook_decode_rows(cwords3, levels2, bits), f"rows at {at}")
+        for kernel, w3, meta, what in ((kdec.codebook_decode_reduce_3d, words3, levels2, "mean"),
+                                       (kdec.uniform_decode_reduce_3d, uwords3, alphas1, "mean"),
+                                       (kdec.uniform_decode_rows_3d, uwords3, alphas1, "rows"),
+                                       (kdec.codebook_decode_rows_3d, cwords3, levels2, "rows")):
+            decode_parity(kernel, w3, meta, n, bits, f"{what} at {at} peers={peers}")
         torch.cuda.synchronize()
         print(f"[parity] n={n} bits={bits} peers={peers}: K1, K10 counts/max exact, sums within "
               f"rtol {STATS_RTOL}, bitwise deterministic; K2, K3, K6, K7 words and residuals, "
-              f"K4, K5 means and K8, K9 rows bitwise")
+              f"K4, K5 means and K8, K9 rows bitwise, and bitwise the serial body and the "
+              f"strided wire entry")
         if (n, bits, peers) == (FULL_N, 3, PEERS):
             full_inputs = dict(g=g, e=e, c=[to2d(heavy(n, 1e-3)) for _ in range(PEERS)],
                                levels=levels, words3=words3, levels2=levels2,
                                alphas=alphas, uwords3=uwords3, alphas1=alphas1)
+
+    # the decode body at every width 1, 2, 3, 4 and 8, over 1, 3, 8, 9 and
+    # 16 peers (one batch of 8 loads, a partial one, two), at a partial last
+    # row and at RAGGED_N, on random wire words (every bit pattern is a
+    # valid wire; the words past packed_size read as zero)
+    for bits in (1, 2, 3, 4, 8):
+        for peers in (1, 3, 8, 9, 16):
+            for n in (1000, RAGGED_N):
+                w = packed_size(n, bits)
+                wire = torch.randint(-2**31, 2**31, (peers, w), generator=gen, device=dev,
+                                     dtype=torch.int64).to(torch.int32)
+                words3 = ops._to_words3(wire, n, bits)
+                levels2 = torch.sort(torch.randn(peers, 2**bits, generator=gen, device=dev),
+                                     1).values
+                alphas1 = 0.05 + torch.rand(peers, generator=gen, device=dev)
+                for kernel, (_, uniform, _) in DECODES.items():
+                    decode_parity(kernel, words3, alphas1 if uniform else levels2, n, bits,
+                                  f"random wire n={n} bits={bits} peers={peers}")
+    torch.cuda.synchronize()
+    print("[parity] K4, K5, K8, K9 on random wires, bits 1, 2, 3, 4, 8 x peers 1, 3, 8, 9, 16 x "
+          f"n 1000, {RAGGED_N}: bitwise the plain versions and the serial body, from the padded "
+          "words and from the contiguous and the strided wire")
 
     # K1/K10 on inputs that fill every bin (1% exact zeros, 1% subnormals,
     # under- and overflow, the rest at least 0.1% off each bin edge), all
@@ -434,7 +479,6 @@ def main() -> int:
     # gives K12/K14) and a full 4 MB tensor, with α and the levels from the
     # per-tensor plan (compressors.plan) that the path uses.
     from repro_torch.core import compressors
-    from repro_torch.core.quantizers import pack_codes, packed_size
 
     Q = {k: f"quantize.{k}" for k in ("uniform_encode_2d", "uniform_decode_2d",
                                       "codebook_encode_2d", "codebook_decode_2d",
@@ -519,10 +563,26 @@ def main() -> int:
         for i, c8 in enumerate(ops.codebook_encode_leaves(gs, lvs, keys)):
             agree(Q["codebook_encode_2d"], c8, ops.codebook_encode(gs[i], lvs[i], keys[i]),
                   f"ops.codebook_encode_leaves codes of leaf {i}, {label}")
+        # the segmented K12 on the same tiles, each with its plan's α
+        alphas = [compressors.plan(CompressorConfig(method="tqsgd", bits=b), g).alpha
+                  .reshape(1).contiguous() for g, b in zip(gs, widths)]
+        codes = kq.uniform_encode_segments(g2s, rands, alphas, widths)
+        agree(Q["uniform_encode_2d"], codes,
+              ref.uniform_encode_segments(g2s, rands, alphas, widths),
+              f"segmented codes, {label}")
+        row = 0
+        for i, (g2, rand, a, b) in enumerate(zip(g2s, rands, alphas, widths)):
+            agree(Q["uniform_encode_2d"], codes[row:row + g2.shape[0]],
+                  kq.uniform_encode_2d(g2, rand, a, b), f"segmented codes of tile {i}, {label}")
+            row += g2.shape[0]
+        for i, c8 in enumerate(ops.uniform_encode_leaves(gs, alphas, widths, keys)):
+            agree(Q["uniform_encode_2d"], c8, ops.uniform_encode(gs[i], alphas[i], widths[i],
+                                                                 keys[i]),
+                  f"ops.uniform_encode_leaves codes of leaf {i}, {label}")
         torch.cuda.synchronize()
-        print(f"[parity] segmented K14, {label} ({len(sizes)} tiles, "
-              f"{sum(g2.shape[0] for g2 in g2s)} rows) in one launch: bitwise the plain version "
-              f"per tile and the one-tile launches through kernels.ops")
+        print(f"[parity] segmented K14 and K12, {label} ({len(sizes)} tiles, "
+              f"{sum(g2.shape[0] for g2 in g2s)} rows), each in one launch: bitwise the plain "
+              f"version per tile and the one-tile launches, also through kernels.ops")
 
     # -- 4. main path -----------------------------------------------------
     from repro_torch.train import train_synced
@@ -619,10 +679,9 @@ def main() -> int:
                       f"{label}: final loss {hist[-1]} outside {window[0]} ± {window[1]}")
 
     # the paper's per-tensor §V loop (train_clients): 8 clients, batch 32,
-    # 30 rounds, every leaf planned by the sort-based fit and encoded
-    # through K14 (codebook methods: all of a client's 8 leaves in one
-    # segmented launch, 8 a round) or K12 (uniform: 8 leaves x 8 clients =
-    # 64 launches a round) with use_pallas, and no other kernel.  Each run
+    # 30 rounds, every leaf planned by the sort-based fit and encoded with
+    # use_pallas, all of a client's 8 leaves in one segmented launch of K14
+    # (codebook methods) or K12 (tqsgd), 8 a round, and no other kernel.  Each run
     # twice: the loss history and accuracy must repeat bit for bit.
     # Final losses: the JAX package's benchmarks.common.train_clients with
     # CompressorConfig bound to use_pallas=True under the original threefry
@@ -769,6 +828,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (reps * len(calls))
 
+    def serial_body(uniform: bool, reduce: bool):
+        return lambda w3, meta, b: kdec.serial_3d(uniform, reduce, w3, meta, b)
+
+    def in_turns(fn, old, calls) -> tuple[list, list]:
+        """A kernel and the body it replaced timed in turns (new, old, new,
+        old) on the same calls."""
+        times = [graph_ms(f, calls) for f in (fn, old, fn, old)]
+        return times[0::2], times[1::2]
+
     fi = full_inputs
     n, bits, rows = FULL_N, 3, -(-FULL_N // 128)
     rand = [prng.uniform(prng.key(p), (rows, 128), device=dev) for p in range(PEERS)]
@@ -795,6 +863,7 @@ def main() -> int:
             fn=kdec.codebook_decode_reduce_3d, plain=ref.codebook_decode_reduce,
             calls=[(fi["words3"].clone(), fi["levels2"], bits) for _ in range(8)],
             bytes=PEERS * wbytes + PEERS * 4 * (2**bits) + 4 * n,
+            serial=serial_body(False, True),
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:165"),
     }
@@ -809,6 +878,7 @@ def main() -> int:
             fn=kdec.uniform_decode_reduce_3d, plain=ref.uniform_decode_reduce,
             calls=[(fi["uwords3"].clone(), fi["alphas1"], bits) for _ in range(8)],
             bytes=PEERS * wbytes + PEERS * 4 + 4 * n,
+            serial=serial_body(True, True),
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:159"),
         "encode_fused.codebook_encode_pack_2d": dict(
@@ -827,12 +897,14 @@ def main() -> int:
             fn=kdec.codebook_decode_rows_3d, plain=ref.codebook_decode_rows,
             calls=[(fi["words3"].clone(), fi["levels2"], bits) for _ in range(2)],
             bytes=PEERS * wbytes + PEERS * 4 * (2**bits) + PEERS * 4 * n,
+            serial=serial_body(False, False),
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:177"),
         "decode.uniform_decode_rows_3d": dict(
             fn=kdec.uniform_decode_rows_3d, plain=ref.uniform_decode_rows,
             calls=[(fi["uwords3"].clone(), fi["alphas1"], bits) for _ in range(2)],
             bytes=PEERS * wbytes + PEERS * 4 + PEERS * 4 * n,
+            serial=serial_body(True, False),
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:171"),
     })
@@ -888,7 +960,12 @@ def main() -> int:
     per_step = {k: max(r["counts"][k] / len(r["hist"]) for r in runs.values()) for k in launches}
     records = []
     for name, sp in spec.items():
-        ms = graph_ms(sp["fn"], sp["calls"])
+        extra = {}
+        if "serial" in sp:
+            new_ms, old_ms = in_turns(sp["fn"], sp["serial"], sp["calls"])
+            ms, extra = new_ms[0], {"ms_turns": new_ms, "serial_body_ms_turns": old_ms}
+        else:
+            ms = graph_ms(sp["fn"], sp["calls"])
         plain_ms = eager_ms(sp["plain"], sp["calls"][:2])
         bound_ms, bound_by = bound(sp["bytes"], sp.get("flops", 0))
         library_ms = eager_ms(sp["library"], sp["library_calls"]) if "library" in sp else None
@@ -899,7 +976,8 @@ def main() -> int:
         records.append(rec)
         print("[time] " + json.dumps(dict(rec, bytes=sp["bytes"], x_bound=ms / bound_ms,
                                           launches_per_step_or_round=per_step[name],
-                                          library=sp.get("library_name", "none"), card=card)))
+                                          library=sp.get("library_name", "none"), card=card,
+                                          **extra)))
 
     # K10 and K1 at the main path's bucket (smallnet, 206,922 elements) as
     # the sync launches them: on the 8 peers' flat buckets, the EF rows
@@ -922,30 +1000,60 @@ def main() -> int:
             "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_step": per_step[name],
             "card": card}))
 
-    # K2 and K4 at the main path's bucket too: the 8 peers' corrected
-    # buckets encoded onto their plans, and the mean of their 8 wires
-    srows = -(-SLICE_N // 128)
-    slv = [plan_levels(x, SLICE_N, bits) for x in sg2]
-    srand = [prng.uniform(prng.key(200 + p), (srows, 128), device=dev) for p in range(PEERS)]
-    sw3 = torch.stack([kenc.codebook_encode_pack_resid_2d(x, r, lv, SLICE_N, bits)[0]
-                       for x, r, lv in zip(sg2, srand, slv)]).contiguous()
-    slv2 = torch.stack(slv).contiguous()
-    swb = srows * 4 * bits * 4
-    for name, fn, plain_fn, calls, nbytes in (
-            ("encode_fused.codebook_encode_pack_resid_2d", kenc.codebook_encode_pack_resid_2d,
-             ref.codebook_encode_pack_residual,
-             [(x, r, lv, SLICE_N, bits) for x, r, lv in zip(sg2, srand, slv)],
-             3 * 4 * SLICE_N + 4 * (2**bits) + swb),
-            ("decode.codebook_decode_reduce_3d", kdec.codebook_decode_reduce_3d,
-             ref.codebook_decode_reduce, [(sw3.clone(), slv2, bits) for _ in range(PEERS)],
-             PEERS * swb + PEERS * 4 * (2**bits) + 4 * SLICE_N)):
-        ms = graph_ms(fn, calls)
-        b_ms, b_by = bound(nbytes)
-        print("[time] " + json.dumps({
-            "main_path_bucket": name, "elements": SLICE_N, "bits": bits, "ms": ms,
-            "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms, "bound_by": b_by,
-            "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_step": per_step[name],
-            "card": card}))
+    # K2-K9 at the shapes the main path launches them at: smallnet's
+    # bucket (206,922 elements: the faithful mode encodes it with K2/K3 and
+    # decodes the 8 peers' wires with K4/K5) and its two_phase chunk
+    # (25,888: K4/K5 decode the 8 peers' chunk wires, K6/K7 re-encode a
+    # chunk mean, K8/K9 decode the 8 re-encoded chunks); L2-resident, as on
+    # the path; each decode beside the serial body it replaced, in turns
+    tp_chunk = chunk(cfg3, SLICE_N, PEERS)
+    for shape, sn in (("bucket", SLICE_N), ("two_phase_chunk", tp_chunk)):
+        srows = -(-sn // 128)
+        sc = [to2d(heavy(sn, 1e-3)) for _ in range(PEERS)]
+        srand = [prng.uniform(prng.key(200 + p), (srows, 128), device=dev) for p in range(PEERS)]
+        slv = [plan_levels(x, sn, bits) for x in sc]
+        sal = [plan(x, sn, bits, "tqsgd").alpha.reshape(1).contiguous() for x in sc]
+        cenc = [(x, r, lv, sn, bits) for x, r, lv in zip(sc, srand, slv)]
+        uenc = [(x, r, a, sn, bits) for x, r, a in zip(sc, srand, sal)]
+        cw3 = torch.stack([kenc.codebook_encode_pack_2d(*a) for a in cenc]).contiguous()
+        uw3 = torch.stack([kenc.uniform_encode_pack_2d(*a) for a in uenc]).contiguous()
+        slv2, sal1 = torch.stack(slv).contiguous(), torch.cat(sal)
+        cdec = [(cw3.clone(), slv2, bits) for _ in range(PEERS)]
+        udec = [(uw3.clone(), sal1, bits) for _ in range(PEERS)]
+        swb = srows * 4 * bits * 4
+        for name, fn, plain_fn, calls, nbytes, serial in (
+                ("encode_fused.codebook_encode_pack_resid_2d", kenc.codebook_encode_pack_resid_2d,
+                 ref.codebook_encode_pack_residual, cenc, 3 * 4 * sn + lvb + swb, None),
+                ("encode_fused.uniform_encode_pack_resid_2d", kenc.uniform_encode_pack_resid_2d,
+                 ref.uniform_encode_pack_residual, uenc, 3 * 4 * sn + 4 + swb, None),
+                ("encode_fused.codebook_encode_pack_2d", kenc.codebook_encode_pack_2d,
+                 ref.codebook_encode_pack, cenc, 2 * 4 * sn + lvb + swb, None),
+                ("encode_fused.uniform_encode_pack_2d", kenc.uniform_encode_pack_2d,
+                 ref.uniform_encode_pack, uenc, 2 * 4 * sn + 4 + swb, None),
+                ("decode.codebook_decode_reduce_3d", kdec.codebook_decode_reduce_3d,
+                 ref.codebook_decode_reduce, cdec, PEERS * (swb + lvb) + 4 * sn,
+                 serial_body(False, True)),
+                ("decode.uniform_decode_reduce_3d", kdec.uniform_decode_reduce_3d,
+                 ref.uniform_decode_reduce, udec, PEERS * (swb + 4) + 4 * sn,
+                 serial_body(True, True)),
+                ("decode.codebook_decode_rows_3d", kdec.codebook_decode_rows_3d,
+                 ref.codebook_decode_rows, cdec, PEERS * (swb + lvb + 4 * sn),
+                 serial_body(False, False)),
+                ("decode.uniform_decode_rows_3d", kdec.uniform_decode_rows_3d,
+                 ref.uniform_decode_rows, udec, PEERS * (swb + 4 + 4 * sn),
+                 serial_body(True, False))):
+            extra = {}
+            if serial is None:
+                ms = graph_ms(fn, calls)
+            else:
+                new_ms, old_ms = in_turns(fn, serial, calls)
+                ms, extra = new_ms[0], {"ms_turns": new_ms, "serial_body_ms_turns": old_ms}
+            b_ms, b_by = bound(nbytes)
+            print("[time] " + json.dumps({
+                "main_path_shape": shape, "kernel": name, "elements": sn, "peers": PEERS,
+                "bits": bits, "ms": ms, "plain_ms": eager_ms(plain_fn, calls[:2]),
+                "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms, "bytes": nbytes,
+                "launches_per_step": per_step[name], "card": card, **extra}))
 
     # K12 and K14 at each of smallnet's leaf sizes, the shapes the
     # per-tensor path launches them at (each size 8 launches a round, one
@@ -990,6 +1098,24 @@ def main() -> int:
             kq.codebook_encode_2d, [t for lg, lr, ll in leaf_sets for t in zip(lg, lr, ll)]),
         "plain_ms": eager_ms(ref.codebook_encode_segments, leaf_sets[:2]), "bound_ms": b_ms,
         "bound_by": b_by, "x_bound": seg_ms / b_ms, "bytes": seg_bytes,
+        "launches_per_round": PEERS, "card": card}))
+
+    # the segmented K12 as the per-tensor tqsgd round launches it, on the
+    # same leaf tiles with each tile's plan α
+    uleaf_sets = [(lg, lr, [plan(x, leaf, bits, "tqsgd").alpha.reshape(1).contiguous()
+                            for x, leaf in zip(lg, leaf_sizes)], [bits] * len(lg))
+                  for lg, lr, _ in leaf_sets]
+    useg_bytes = 12 * seg_rows * 128 + 4 * len(leaf_sizes)
+    useg_ms = graph_ms(kq.uniform_encode_segments, uleaf_sets)
+    b_ms, b_by = bound(useg_bytes)
+    print("[time] " + json.dumps({
+        "segmented_k12": "quantize.uniform_encode_segments", "tiles": len(leaf_sizes),
+        "rows": seg_rows, "bits": bits, "ms": useg_ms,
+        "eight_launches_ms": len(leaf_sizes) * graph_ms(
+            kq.uniform_encode_2d, [t for lg, lr, la, lb in uleaf_sets
+                                   for t in zip(lg, lr, la, lb)]),
+        "plain_ms": eager_ms(ref.uniform_encode_segments, uleaf_sets[:2]), "bound_ms": b_ms,
+        "bound_by": b_by, "x_bound": useg_ms / b_ms, "bytes": useg_bytes,
         "launches_per_round": PEERS, "card": card}))
 
     # K11 at the P factors of smallnet's bucket, of the mixed plan's
@@ -1096,7 +1222,8 @@ def main() -> int:
     breakdown = {
         "stats_K10_x8": phase(lambda: [ops.bucket_stats(f) for f in flats]),
         "plan_x8": phase(lambda: [codec.plan(cfg, f, tuple(s)) for f, s in zip(flats, stats)]),
-        "rand_draw_x8": phase(lambda: [prng.uniform(prng.key(p), (srows, 128), device=dev)
+        "rand_draw_x8": phase(lambda: [prng.uniform(prng.key(p), (-(-SLICE_N // 128), 128),
+                                                    device=dev)
                                        for p in range(PEERS)]),
         "encode_K2_with_rand_x8": phase(lambda: [codec.encode_residual(cfg, f, pl, prng.key(p))
                                                  for p, (f, pl) in enumerate(zip(flats, plans))]),
@@ -1142,6 +1269,8 @@ def main() -> int:
     tkeys = [[prng.fold_in(prng.key(c), j) for j in range(len(SMALLNET_SHAPES))]
              for c in range(PEERS)]
     tmetas = [[compressors.plan(tcfg, x) for x in ls] for ls in tleaves]
+    umetas = [[compressors.plan(CompressorConfig(method="tqsgd", bits=3), x) for x in ls]
+              for ls in tleaves]
     tcodes = [[ops.codebook_encode(x.reshape(-1), m.levels, k) for x, m, k in zip(ls, ms, ks)]
               for ls, ms, ks in zip(tleaves, tmetas, tkeys)]
     twires = [[pack_codes(c8, 3) for c8 in cs] for cs in tcodes]
@@ -1163,6 +1292,15 @@ def main() -> int:
         "compress_decompress_leaves_x8": phase(lambda: [
             compressors.compress_decompress_leaves([tcfg] * len(ls), ls, ks)
             for ls, ks in zip(tleaves, tkeys)], 3),
+        # tqsgd's encode: per leaf (64 K12 launches) and per client (8
+        # segmented launches, as train_clients runs it)
+        "tqsgd_encode_K12_with_rand_x64": phase(lambda: [
+            [ops.uniform_encode(x.reshape(-1), m.alpha, 3, k) for x, m, k in zip(ls, ms, ks)]
+            for ls, ms, ks in zip(tleaves, umetas, tkeys)], 3),
+        "tqsgd_encode_K12_with_rand_x8": phase(lambda: [
+            ops.uniform_encode_leaves([x.reshape(-1) for x in ls], [m.alpha for m in ms],
+                                      [3] * len(ls), ks)
+            for ls, ms, ks in zip(tleaves, umetas, tkeys)], 3),
     }
     print("[time] " + json.dumps({"per_tensor_round_breakdown_ms": tbreak, "card": card}))
 

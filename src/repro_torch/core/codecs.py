@@ -158,7 +158,7 @@ class QuantizerCodec(Codec):
 
     def _split(self, cfg: CompressorConfig, rows: torch.Tensor, n: int):
         w = packed_size(n, cfg.bits)
-        return rows[:, :w].contiguous(), _levels_from_wire(rows[:, w:w + cfg.s + 1])
+        return rows[:, :w], _levels_from_wire(rows[:, w:w + cfg.s + 1])
 
     def decode_reduce(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
         """(peers, wire_words) gathered rows -> (n,) fp32 peer mean."""

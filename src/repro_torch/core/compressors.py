@@ -193,23 +193,32 @@ def compress_decompress(cfg: CompressorConfig, g: torch.Tensor, key: torch.Tenso
 def compress_decompress_leaves(cfgs: list, leaves: list, keys: list) -> list:
     """:func:`compress_decompress` of every leaf, leaf i with ``cfgs[i]``
     and ``keys[i]``, bit for bit.  Each leaf keeps its own plan and its own
-    uniforms (drawn with its key on its padded tile); the codebook leaves
-    whose config sets ``use_pallas`` are encoded together, one segmented K14
-    launch on the card (``kernels.ops.codebook_encode_leaves``)."""
+    uniforms (drawn with its key on its padded tile); the leaves whose
+    config sets ``use_pallas`` are encoded together, the codebook ones in
+    one segmented K14 launch and the qsgd and tqsgd ones in one segmented
+    K12 launch on the card (``kernels.ops.codebook_encode_leaves``,
+    ``uniform_encode_leaves``); dsgd leaves pass through."""
+    from repro_torch.kernels import ops
+
     out = list(leaves)
-    batch = []
+    books, grids = [], []
     for i, (cfg, g, k) in enumerate(zip(cfgs, leaves, keys)):
         if cfg.use_pallas and cfg.method not in _UNIFORM:
-            batch.append(i)
+            books.append(i)
+        elif cfg.use_pallas and cfg.method != "dsgd":
+            grids.append(i)
         else:
             out[i] = compress_decompress(cfg, g, k)
-    if batch:
-        from repro_torch.kernels import ops
-
+    for batch, encode in (
+            (books, lambda flats, metas, ks: ops.codebook_encode_leaves(
+                flats, [m.levels for m in metas], ks)),
+            (grids, lambda flats, metas, ks: ops.uniform_encode_leaves(
+                flats, [m.alpha for m in metas], [cfgs[i].bits for i in grids], ks))):
+        if not batch:
+            continue
         metas = [plan(cfgs[i], leaves[i]) for i in batch]
         flats = [leaves[i].reshape(-1).to(torch.float32) for i in batch]
-        codes = ops.codebook_encode_leaves(flats, [m.levels for m in metas],
-                                           [keys[i] for i in batch])
+        codes = encode(flats, metas, [keys[i] for i in batch])
         for i, meta, c in zip(batch, metas, codes):
             out[i] = decode(cfgs[i], _wire(cfgs[i], c), meta,
                             tuple(leaves[i].shape)).to(leaves[i].dtype)

@@ -38,7 +38,7 @@
 // concatenation of the tiles): segment i owns a run of whole blocks, a block
 // finds its segment by a binary search of the runs' ends, and its codes
 // go to rows row0_i .. row0_i + rows_i of one (sum rows_i, 128) output.  So
-// all of a client's leaves (K14 over 8 segments) are one launch, each
+// all of a client's leaves (K14 or K12 over 8 segments) are one launch, each
 // segment's codes bitwise those of a launch on that segment alone, and the
 // single-tensor launches are the one-segment case of the same template
 // (with PACK only that case).  The codebook (at most 256 floats) sits in
@@ -191,6 +191,12 @@ int repro_codebook_encode(const float* g, const float* rand, const float* levels
 // 128) int32, tile i's rows after those of tiles 0 .. i-1.
 int repro_codebook_encode_segments(const long long* desc, int count, int* codes, void* stream) {
   return encode<false, false, MAX_SEGMENTS>(desc, count, 0, 0, codes, nullptr, stream);
+}
+
+// K12 over 1 <= count <= 64 tiles in one launch: desc as above, with each
+// tile's alpha (1,) pointer in place of its levels and s = 2^bits_i - 1.
+int repro_uniform_encode_segments(const long long* desc, int count, int* codes, void* stream) {
+  return encode<true, false, MAX_SEGMENTS>(desc, count, 0, 0, codes, nullptr, stream);
 }
 
 // K16

@@ -2,7 +2,8 @@
 
 The counterpart of ``repro.kernels.ops``.  Each wrapper pads a flat bucket
 to the (rows, 128) layout (on the card the statistics kernels K1 and K10
-take the bucket as it lies instead), draws the stochastic-rounding
+take the bucket, and the decodes K4, K5, K8 and K9 the stacked wire, as it
+lies instead), draws the stochastic-rounding
 uniforms on that padded tile (element i's counters follow from i and the
 tile's size, exactly as in the JAX package), and sends the operands to
 the kernel when they lie on the card or to the plain version in
@@ -185,25 +186,41 @@ def codebook_encode(g: torch.Tensor, levels: torch.Tensor, key: torch.Tensor) ->
     return codes.reshape(-1)[:n].to(torch.uint8)
 
 
-def codebook_encode_leaves(gs: list, levels: list, keys: list) -> list:
-    """:func:`codebook_encode` over a list of tensors, tensor i onto
-    ``levels[i]`` with ``keys[i]``: each padded to (rows_i, 128) with its
-    uniforms drawn on that tile, then one segmented K14 launch for every
-    ``MAX_SEGMENTS`` of them (their plain version on the CPU).  Returns the
-    flat uint8 codes of each, bitwise :func:`codebook_encode`'s."""
+def _encode_leaves(segmented, plain, gs: list, metas: list, keys: list, *per_leaf) -> list:
+    """Each of ``gs`` padded to (rows_i, 128) with its uniforms drawn on
+    that tile by ``keys[i]``, then one ``segmented`` launch (its ``plain``
+    version on the CPU) for every ``MAX_SEGMENTS`` of them, on ``metas[i]``
+    and each list of ``per_leaf``; returns the flat uint8 codes of each."""
     drawn = [_draw(g, k) for g, k in zip(gs, keys)]
-    lvs = [_f32(lv) for lv in levels]
     out = []
     for a in range(0, len(drawn), _q.MAX_SEGMENTS):
         part = drawn[a:a + _q.MAX_SEGMENTS]
         g2s, rands = [d[0] for d in part], [d[2] for d in part]
-        encode = _q.codebook_encode_segments if _on_card(g2s[0]) else ref.codebook_encode_segments
-        codes = encode(g2s, rands, lvs[a:a + _q.MAX_SEGMENTS])
+        encode = segmented if _on_card(g2s[0]) else plain
+        codes = encode(g2s, rands, *[x[a:a + _q.MAX_SEGMENTS] for x in (metas, *per_leaf)])
         row = 0
         for g2, n, _ in part:
             out.append(codes[row:row + g2.shape[0]].reshape(-1)[:n].to(torch.uint8))
             row += g2.shape[0]
     return out
+
+
+def codebook_encode_leaves(gs: list, levels: list, keys: list) -> list:
+    """:func:`codebook_encode` over a list of tensors, tensor i onto
+    ``levels[i]`` with ``keys[i]``: one segmented K14 launch for every
+    ``MAX_SEGMENTS`` of them.  Returns the flat uint8 codes of each,
+    bitwise :func:`codebook_encode`'s."""
+    return _encode_leaves(_q.codebook_encode_segments, ref.codebook_encode_segments, gs,
+                          [_f32(lv) for lv in levels], keys)
+
+
+def uniform_encode_leaves(gs: list, alphas: list, bits: list, keys: list) -> list:
+    """:func:`uniform_encode` over a list of tensors, tensor i onto [−α_i,
+    α_i] at ``bits[i]`` with ``keys[i]``: one segmented K12 launch for every
+    ``MAX_SEGMENTS`` of them.  Returns the flat uint8 codes of each,
+    bitwise :func:`uniform_encode`'s."""
+    return _encode_leaves(_q.uniform_encode_segments, ref.uniform_encode_segments, gs,
+                          [_alpha(a) for a in alphas], keys, list(bits))
 
 
 def codebook_decode(codes: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
@@ -227,14 +244,18 @@ def _to_words3(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
 
 
 def _decode(kernel, plain, words: torch.Tensor, meta: torch.Tensor, n: int, bits: int):
-    words3 = _to_words3(words, n, bits)
-    return (kernel if _on_card(words3) else plain)(words3, meta, bits)
+    """The kernel on the wire as it lies (its rows may be strided), or the
+    plain version on the wire zero-padded to (peers, rows, 4·bits)."""
+    if _on_card(words):
+        return _d.from_wire(kernel, words, meta, n, bits)
+    return plain(_to_words3(words, n, bits), meta, bits)
 
 
 def codebook_decode_reduce(words: torch.Tensor, levels: torch.Tensor, n: int,
                            bits: int) -> torch.Tensor:
     """Unpack + codebook dequant + peer mean (K4); ``words``: (peers,
-    packed_size(n, bits)) int32, ``levels``: (peers, s+1).  Returns (n,)."""
+    packed_size(n, bits)) int32, each row contiguous, ``levels``: (peers,
+    s+1).  Returns (n,)."""
     out = _decode(_d.codebook_decode_reduce_3d, ref.codebook_decode_reduce, words,
                   _f32(levels), n, bits)
     return out.reshape(-1)[:n]

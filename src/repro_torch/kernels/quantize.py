@@ -15,9 +15,11 @@ wrappers in ``kernels.ops``.
 Every kernel here is bound by its bytes, except where the per-tensor path
 gives it a leaf of a few rows: there a launch costs the launch alone.  So
 the encode template takes a table of up to ``MAX_SEGMENTS`` tiles, each
-with its own levels, and :func:`codebook_encode_segments` encodes all of a
-client's leaves in one launch of K14 (counted as K14's), each leaf's codes
-bitwise those of :func:`codebook_encode_2d` on that leaf alone.
+with its own levels or α, and :func:`codebook_encode_segments` and
+:func:`uniform_encode_segments` encode all of a client's leaves in one
+launch of K14 or K12 (counted as that kernel's), each leaf's codes bitwise
+those of :func:`codebook_encode_2d` or :func:`uniform_encode_2d` on that
+leaf alone.
 
 K16 and K17 share their TPU names with K7 and K6 of ``encode_fused``;
 ``kernels.launch_counts`` keys every kernel by module and name.
@@ -109,36 +111,60 @@ def codebook_encode_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tenso
     return _encode(codebook_encode_2d, "repro_codebook_encode", g2, rand, levels, s)
 
 
+def _segments(kernel, fn_name: str, g2s: list, rands: list, metas: list, ss) -> torch.Tensor:
+    """One launch of the segmented encode ``fn_name`` over tiles (g2s[i],
+    rands[i]) with operand metas[i] and s = ss(i, g2s[i], metas[i]), which
+    checks that operand; counted in ``kernel.launches``."""
+    k = len(g2s)
+    if not 1 <= k <= MAX_SEGMENTS or len(rands) != k or len(metas) != k:
+        raise ValueError(f"need 1 to {MAX_SEGMENTS} tiles, each with rand and its operand; got "
+                         f"{k} g, {len(rands)} rand, {len(metas)} operands")
+    for i, (g2, rand) in enumerate(zip(g2s, rands)):
+        if rand.shape != g2.shape or g2.device != g2s[0].device or rand.device != g2.device:
+            raise ValueError(f"tile {i}: rand must match g in shape, and every tile must lie "
+                             f"on {g2s[0].device}")
+    desc = []
+    for i, (g2, rand, meta) in enumerate(zip(g2s, rands, metas)):
+        check_2d(f"g[{i}]", g2)
+        check_2d(f"rand[{i}]", rand)
+        desc += [g2.data_ptr(), rand.data_ptr(), meta.data_ptr(), ss(i, g2, meta), g2.shape[0]]
+    dev = g2s[0].device
+    codes = torch.empty((sum(g2.shape[0] for g2 in g2s), LANES), dtype=torch.int32, device=dev)
+    fn = _build.bind("quantize", fn_name, [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        code = fn((ctypes.c_longlong * len(desc))(*desc), k, _build.ptr(codes),
+                  _build.stream(g2s[0]))
+    _build.check(code, fn_name)
+    kernel.launches += 1
+    return codes
+
+
 def codebook_encode_segments(g2s: list, rands: list, levels: list) -> torch.Tensor:
     """K14 over 1 to ``MAX_SEGMENTS`` tiles in one launch: tile i's g and
     rand (rows_i, 128) fp32 CUDA, its levels (s_i+1,) fp32 -> (Σ rows_i, 128)
     int32 codes, tile i's in rows Σ_{k<i} rows_k onward; each tile's codes
     equal :func:`codebook_encode_2d`'s on it alone.  One launch, counted in
     ``codebook_encode_2d.launches``."""
-    k = len(g2s)
-    if not 1 <= k <= MAX_SEGMENTS or len(rands) != k or len(levels) != k:
-        raise ValueError(f"need 1 to {MAX_SEGMENTS} tiles, each with rand and levels; got "
-                         f"{k} g, {len(rands)} rand, {len(levels)} levels")
-    for i, (g2, rand) in enumerate(zip(g2s, rands)):
-        if rand.shape != g2.shape or g2.device != g2s[0].device or rand.device != g2.device:
-            raise ValueError(f"tile {i}: rand must match g in shape, and every tile must lie "
-                             f"on {g2s[0].device}")
-    desc = []
-    for i, (g2, rand, lv) in enumerate(zip(g2s, rands, levels)):
-        check_2d(f"g[{i}]", g2)
-        check_2d(f"rand[{i}]", rand)
-        s = _meta(f"levels[{i}]", lv, g2)
-        desc += [g2.data_ptr(), rand.data_ptr(), lv.data_ptr(), s, g2.shape[0]]
-    dev = g2s[0].device
-    codes = torch.empty((sum(g2.shape[0] for g2 in g2s), LANES), dtype=torch.int32, device=dev)
-    fn = _build.bind("quantize", "repro_codebook_encode_segments", [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        code = fn((ctypes.c_longlong * len(desc))(*desc), k, _build.ptr(codes),
-                  _build.stream(g2s[0]))
-    _build.check(code, "codebook_encode_segments")
-    codebook_encode_2d.launches += 1
-    return codes
+    return _segments(codebook_encode_2d, "repro_codebook_encode_segments", g2s, rands, levels,
+                     lambda i, g2, lv: _meta(f"levels[{i}]", lv, g2))
+
+
+def uniform_encode_segments(g2s: list, rands: list, alphas: list, bits: list) -> torch.Tensor:
+    """K12 over 1 to ``MAX_SEGMENTS`` tiles in one launch: tile i's g and
+    rand (rows_i, 128) fp32 CUDA, its α (1,) fp32 on the card and its
+    ``bits[i]`` -> (Σ rows_i, 128) int32 codes, stacked as
+    :func:`codebook_encode_segments` stacks them; each tile's codes equal
+    :func:`uniform_encode_2d`'s on it alone.  One launch, counted in
+    ``uniform_encode_2d.launches``."""
+    if len(bits) != len(g2s):
+        raise ValueError(f"need one bits per tile; got {len(g2s)} tiles and {len(bits)} bits")
+
+    def s_of(i, g2, alpha):
+        _meta(f"alpha[{i}]", alpha, g2, (1,))
+        return _bits(bits[i])
+
+    return _segments(uniform_encode_2d, "repro_uniform_encode_segments", g2s, rands, alphas, s_of)
 
 
 def uniform_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor, n: int,

@@ -180,6 +180,13 @@ def codebook_encode_segments(g2s: list, rands: list, levels: list) -> torch.Tens
     return torch.cat([codebook_encode(g2, rand, lv) for g2, rand, lv in zip(g2s, rands, levels)])
 
 
+def uniform_encode_segments(g2s: list, rands: list, alphas: list, bits: list) -> torch.Tensor:
+    """Segmented K12: :func:`uniform_encode` on each (rows_i, 128) tile with
+    its own uniforms, α and bits, the codes stacked into (Σ rows_i, 128)."""
+    return torch.cat([uniform_encode(g2, rand, a, b)
+                      for g2, rand, a, b in zip(g2s, rands, alphas, bits)])
+
+
 def uniform_encode_pack_codes(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
                               n: int, bits: int):
     """K16: K12's codes zeroed past n, and their words: ((rows, 128) int32

@@ -234,17 +234,19 @@ def test_compress_with_feedback_matches(use_pallas):
 LEAF_SHAPES = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (10,), (128, 10)]
 
 
-@pytest.mark.parametrize("case", ["tnqsgd", "bits_plan", "ef"])
-def test_compress_decompress_leaves_equals_per_leaf_loop(case):
+@pytest.mark.parametrize("case", ["tnqsgd", "tqsgd", "qsgd", "bits_plan", "ef"])
+def test_compress_decompress_leaves_equals_per_leaf_loop(case, monkeypatch):
     """``compress_decompress_leaves`` (one segmented K14 for the codebook
-    leaves) against a loop of ``compress_decompress``, bit for bit on the
-    CPU: tnqsgd at one width, a bits_plan with mixed widths and methods
-    (uniform and dsgd leaves take the per-leaf path), and error feedback
-    (``compress_with_feedback`` against the loop on the corrected leaves)."""
+    leaves, one segmented K12 for the qsgd and tqsgd ones) against a loop
+    of ``compress_decompress``, bit for bit on the CPU: tnqsgd, tqsgd and
+    qsgd at one width, a bits_plan with mixed widths and methods (dsgd
+    leaves pass through), and error feedback (``compress_with_feedback``
+    against the loop on the corrected leaves)."""
     rng = np.random.default_rng(8)
     leaves = [torch.from_numpy((1e-2 * rng.standard_normal(s)).astype(np.float32))
               for s in LEAF_SHAPES]
-    base = compressors.CompressorConfig(method="tnqsgd", bits=3, use_pallas=True)
+    base = compressors.CompressorConfig(method=case if case in ("tqsgd", "qsgd") else "tnqsgd",
+                                        bits=3, use_pallas=True)
     cfgs = [base] * len(leaves)
     if case == "bits_plan":
         cfgs = [compressors.CompressorConfig(method=m, bits=b, use_pallas=True) for m, b in
@@ -261,8 +263,20 @@ def test_compress_decompress_leaves_equals_per_leaf_loop(case):
         for e, x, w in zip(new_errs, corrected, want):
             assert torch.equal(e, x - w)
     else:
+        from repro_torch.kernels import ref
+
+        calls = {}
+        for name in ("codebook_encode_segments", "uniform_encode_segments"):
+            def counted(*args, _plain=getattr(ref, name), _name=name):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _plain(*args)
+            monkeypatch.setattr(ref, name, counted)
         keys = [prng.fold_in(key, j) for j in range(len(leaves))]
         got = compressors.compress_decompress_leaves(cfgs, leaves, keys)
+        # one segmented encode for each kind of leaf that the configs hold
+        kinds = {"tnqsgd": ["codebook"], "bits_plan": ["codebook", "uniform"]}.get(case,
+                                                                                  ["uniform"])
+        assert calls == {f"{k}_encode_segments": 1 for k in kinds}
         want = [compressors.compress_decompress(c, x, k) for c, x, k in zip(cfgs, leaves, keys)]
     for g, w, x in zip(got, want, leaves):
         assert g.shape == x.shape and torch.equal(g, w)

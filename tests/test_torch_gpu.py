@@ -14,8 +14,10 @@ launches, across the (rows, 128) and the flat path and across a buffer's
 alignment; K11 within rtol 1e-5 / atol 1e-6 of its plain version (the
 sums run in another order), exact zeros for zero columns, and bitwise
 equal across two launches, the register and the global-memory path bitwise
-equal; the segmented K14 bitwise equal to its plain version and to the
-one-tile kernel on each tile.
+equal; the segmented K14 and K12 bitwise equal to their plain versions
+and to the one-tile kernel on each tile; the decode body bitwise the
+serial body it replaced, and equal from the padded words and from the
+stacked wire as it lies.
 """
 import math
 
@@ -267,6 +269,67 @@ def test_wrappers_count_launches_and_reject_bad_operands(cuda):
                                       torch.zeros(3, device=cuda), 3)
 
 
+# the decode body (K4, K5, K8, K9): every width a codebook can have up to
+# 8 bits that the tests use, one peer, an odd count, one batch of 8, one
+# past it and two full batches; a last row that is partial and one
+# ragged past a multiple of 32
+DECODE_BITS = [1, 2, 3, 4, 8]
+DECODE_PEERS = [1, 3, 8, 9, 16]
+RAGGED_N = 100_003
+
+
+@pytest.mark.parametrize("peers", DECODE_PEERS)
+@pytest.mark.parametrize("bits", DECODE_BITS)
+def test_decode_body_bitwise(cuda, bits, peers):
+    """Each of K4, K5, K8, K9 on random wire words: bitwise its plain
+    version and the replaced serial body on the padded (peers, rows,
+    4·bits) words, and the same bits from the stacked wire as it lies, its
+    rows contiguous or strided (the codec's layout, levels after the
+    words), through ``decode.from_wire`` and the ``kernels.ops`` wrappers."""
+    from repro_torch.core.quantizers import packed_size
+
+    gen = torch.Generator(device=cuda).manual_seed(bits * 100 + peers)
+    for n in (1000, RAGGED_N):
+        w = packed_size(n, bits)
+        wide = torch.randint(-2**31, 2**31, (peers, w + 9), generator=gen, device=cuda,
+                             dtype=torch.int64).to(torch.int32)
+        strided = wide[:, :w]
+        wire = strided.contiguous()
+        words3 = ops._to_words3(wire, n, bits)
+        levels = torch.sort(torch.randn(peers, 2**bits, generator=gen, device=cuda), 1).values
+        alphas = 0.05 + torch.rand(peers, generator=gen, device=cuda)
+        for kernel, plain, meta, uniform, reduce, wrap in (
+                (decode.codebook_decode_reduce_3d, ref.codebook_decode_reduce, levels, False, True,
+                 ops.codebook_decode_reduce),
+                (decode.uniform_decode_reduce_3d, ref.uniform_decode_reduce, alphas, True, True,
+                 ops.uniform_decode_reduce),
+                (decode.codebook_decode_rows_3d, ref.codebook_decode_rows, levels, False, False,
+                 ops.codebook_decode_rows),
+                (decode.uniform_decode_rows_3d, ref.uniform_decode_rows, alphas, True, False,
+                 ops.uniform_decode_rows)):
+            kernels.reset_launch_counts()
+            got = kernel(words3, meta, bits)
+            assert torch.equal(got, plain(words3, meta, bits)), (kernel.__name__, n)
+            assert torch.equal(got, decode.serial_3d(uniform, reduce, words3, meta, bits))
+            for x in (wire, strided):
+                assert torch.equal(decode.from_wire(kernel, x, meta, n, bits), got)
+                flat = got.reshape(-1)[:n] if reduce else got.reshape(peers, -1)[:, :n]
+                assert torch.equal(wrap(x, meta, n, bits), flat)
+            assert kernels.launch_counts()[kernels.kernel_name(kernel)] == 5
+
+
+def test_decode_wire_entry_rejects_bad_wires(cuda):
+    lv = torch.zeros(2, 8, device=cuda)
+    wire = torch.zeros((2, 96), dtype=torch.int32, device=cuda)     # 1,024 elements at 3 bits
+    for words, n, bits in ((wire, 1100, 3), (wire[:, :95], 1024, 3),
+                           (wire.T.contiguous().T, 1024, 3),
+                           (wire.cpu(), 1024, 3), (wire.float(), 1024, 3), (wire, 1024, 9)):
+        with pytest.raises(ValueError):
+            decode.from_wire(decode.codebook_decode_reduce_3d, words, lv, n, bits)
+    with pytest.raises(ValueError):
+        decode.from_wire(decode.codebook_decode_reduce_3d, wire, lv[:1], 1024, 3)
+
+
 # K12-K17 at every leaf size of smallnet (each a tile shape the per-tensor
 # path gives them) and a full 4 MB tensor
 Q_SIZES = [10, 16, 32, 128, 144, 1280, 4608, 200_704, 1_048_576]
@@ -362,6 +425,52 @@ def test_segmented_codebook_encode_rejects_bad_tables(cuda):
     assert kernels.launch_counts()["quantize.codebook_encode_2d"] == 0
 
 
+@pytest.mark.parametrize("case", ["smallnet-2", "smallnet-3", "smallnet-8", "mixed", "one",
+                                  "sixty-four"])
+def test_segmented_uniform_encode_bitwise(cuda, case):
+    """The segmented K12 in one launch against the plain version per tile
+    and against the one-tile kernel: smallnet's eight leaf tiles at one
+    width, with mixed widths (2, 3 and 8), one tile, and 64 tiles, each
+    with the α of the per-tensor plan."""
+    from repro_torch.core.compressors import CompressorConfig, plan
+
+    sizes = [16, 144, 32, 4608, 128, 200_704, 10, 1280]
+    widths = {"mixed": [2, 3, 8, 3, 2, 3, 8, 2], "one": [3], "sixty-four": [3, 2, 8, 3] * 16}
+    bits = widths[case] if case in widths else [int(case.rsplit("-", 1)[-1])] * 8
+    sizes = {"one": [200_704], "sixty-four": [sizes[i % 8] for i in range(64)]}.get(case, sizes)
+    gen = torch.Generator(device=cuda).manual_seed(len(bits) * 10 + bits[0] + 1)
+    g2s, rands, alphas = [], [], []
+    for i, (n, b) in enumerate(zip(sizes, bits)):
+        g = _heavy(gen, n, cuda, 0.05)
+        g2s.append(ops._to_2d(g)[0])
+        rands.append(prng.uniform(prng.key(200 + i), g2s[-1].shape, device=cuda))
+        alphas.append(plan(CompressorConfig(method="tqsgd", bits=b), g).alpha.reshape(1)
+                      .contiguous())
+    kernels.reset_launch_counts()
+    codes = quantize.uniform_encode_segments(g2s, rands, alphas, bits)
+    assert kernels.launch_counts()["quantize.uniform_encode_2d"] == 1
+    assert torch.equal(codes, ref.uniform_encode_segments(g2s, rands, alphas, bits))
+    row = 0
+    for g2, rand, a, b in zip(g2s, rands, alphas, bits):
+        assert torch.equal(codes[row:row + g2.shape[0]], quantize.uniform_encode_2d(g2, rand, a, b))
+        row += g2.shape[0]
+
+
+def test_segmented_uniform_encode_rejects_bad_tables(cuda):
+    g2, a = torch.zeros((4, 128), device=cuda), torch.ones(1, device=cuda)
+    kernels.reset_launch_counts()
+    for call in (lambda: quantize.uniform_encode_segments([g2] * 65, [g2] * 65, [a] * 65, [3] * 65),
+                 lambda: quantize.uniform_encode_segments([g2, g2], [g2, g2[:2]], [a, a], [3, 3]),
+                 lambda: quantize.uniform_encode_segments([g2, g2.cpu()], [g2, g2.cpu()],
+                                                          [a, a.cpu()], [3, 3]),
+                 lambda: quantize.uniform_encode_segments([g2, g2], [g2, g2],
+                                                          [a, torch.ones(2, device=cuda)], [3, 3]),
+                 lambda: quantize.uniform_encode_segments([g2, g2], [g2, g2], [a, a], [3, 9])):
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launch_counts()["quantize.uniform_encode_2d"] == 0
+
+
 def test_per_tensor_training_runs_through_k12_and_k14(cuda):
     from repro_torch.train import train_clients
 
@@ -372,9 +481,8 @@ def test_per_tensor_training_runs_through_k12_and_k14(cuda):
                                   device="cuda")
         counts = kernels.launch_counts()
         assert len(hist) == 1 and hist[0] == hist[0] and 0.0 <= acc <= 1.0
-        # tnqsgd: one segmented K14 launch per client; tqsgd: K12 per leaf
-        want = 8 if method == "tnqsgd" else 64
-        assert counts[name] == want and sum(counts.values()) == want
+        # one segmented launch per client: K14 for tnqsgd, K12 for tqsgd
+        assert counts[name] == 8 and sum(counts.values()) == 8
 
 
 @pytest.mark.parametrize("shape", GS_SHAPES)

@@ -13,7 +13,10 @@ Contract, per kernel:
   apart), and within 4 ulp of α against the Pallas kernel, which contracts
   the multiply-add in interpret mode — the JAX package's own contract
   between its two versions (``tests/test_decode_kernels.py``);
-- K15 (``levels[code]``): bitwise.
+- K15 (``levels[code]``): bitwise;
+- the segmented K12 and K14 (one launch over many tiles): their plain
+  versions bitwise per tile (K12's against the Pallas kernel), and the
+  ``ops.*_encode_leaves`` wrappers bitwise the per-leaf wrappers.
 """
 import numpy as np
 import pytest
@@ -167,6 +170,69 @@ def test_segmented_codebook_encode_rejects_bad_tables():
             quantize.codebook_encode_segments(tiles, tiles, [lv] * len(tiles))
     with pytest.raises(ValueError, match="tiles"):
         quantize.codebook_encode_segments([g2, g2], [g2, g2], [lv])
+
+
+# smallnet's leaf sizes below 200,704 elements, at mixed widths
+SMALL_LEAVES = [n for n in LEAF_SIZES if n < 200_704]
+SMALL_BITS = [2, 3, 8, 3, 2, 8, 3]
+
+
+def test_segmented_uniform_encode_plain_matches_jax():
+    """The segmented plain K12 over smallnet's leaf tiles below 200,704
+    elements, each with its own α and width: each tile's codes bitwise the
+    JAX package's per-tile encode (its Pallas kernel in interpret mode, all
+    tiles in one jit) on the same key."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(11)
+    gs = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in SMALL_LEAVES]
+    alphas = [np.float32(0.05 + 0.02 * i) for i in range(len(gs))]
+    seeds = [300 + i for i in range(len(gs))]
+    want = jax.jit(lambda xs, als: [jops.uniform_encode(x, a, b, jax.random.key(k))
+                                    for x, a, b, k in zip(xs, als, SMALL_BITS, seeds)])(
+        [jnp.asarray(g) for g in gs], [jnp.float32(a) for a in alphas])
+    drawn = [ops._draw(torch.from_numpy(g), prng.key(k)) for g, k in zip(gs, seeds)]
+    g2s, rands = [d[0] for d in drawn], [d[2] for d in drawn]
+    codes = ref.uniform_encode_segments(g2s, rands, [torch.tensor([a]) for a in alphas],
+                                        SMALL_BITS)
+    assert codes.shape == (sum(g2.shape[0] for g2 in g2s), 128) and codes.dtype == torch.int32
+    row = 0
+    for (g2, n, _), w in zip(drawn, want):
+        assert (codes[row:row + g2.shape[0]].reshape(-1)[:n].numpy() == np.asarray(w)).all()
+        row += g2.shape[0]
+
+
+def test_uniform_encode_leaves_equal_per_leaf_encodes():
+    """``ops.uniform_encode_leaves`` returns ``ops.uniform_encode``'s codes
+    of every leaf, each with its own α and width, past ``MAX_SEGMENTS``
+    leaves too, and counts no launch on the CPU."""
+    rng = np.random.default_rng(12)
+    gs = [torch.from_numpy((0.1 * rng.standard_normal(n)).astype(np.float32))
+          for n in LEAF_SIZES + [10, 130] * 30]                # 68 leaves: two launches' worth
+    alphas = [torch.tensor(0.05 + 0.001 * i) for i in range(len(gs))]
+    bits = [SMALL_BITS[i % len(SMALL_BITS)] for i in range(len(gs))]
+    keys = [prng.fold_in(prng.key(13), j) for j in range(len(gs))]
+    before = kernels.launch_counts()
+    for g, a, b, k, c in zip(gs, alphas, bits, keys, ops.uniform_encode_leaves(gs, alphas, bits,
+                                                                              keys)):
+        assert torch.equal(c, ops.uniform_encode(g, a, b, k))
+    assert kernels.launch_counts() == before
+
+
+def test_segmented_uniform_encode_rejects_bad_tables():
+    """The segmented K12 wrapper refuses CPU tensors, a tile whose rand does
+    not match its g, more than ``MAX_SEGMENTS`` tiles and a bits list of
+    another length."""
+    g2, a = torch.zeros((2, 128)), torch.ones(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize.uniform_encode_segments([g2, g2], [g2, g2], [a, a], [3, 3])
+    with pytest.raises(ValueError, match="rand must match"):
+        quantize.uniform_encode_segments([g2, g2], [g2, g2[:1]], [a, a], [3, 3])
+    k = quantize.MAX_SEGMENTS + 1
+    with pytest.raises(ValueError, match="tiles"):
+        quantize.uniform_encode_segments([g2] * k, [g2] * k, [a] * k, [3] * k)
+    with pytest.raises(ValueError, match="bits"):
+        quantize.uniform_encode_segments([g2, g2], [g2, g2], [a, a], [3])
 
 
 def test_launch_count_keys_are_distinct():
