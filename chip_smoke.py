@@ -30,7 +30,11 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    over 1 and 64 tiles; K4, K5, K8 and K9 also bitwise the serial body they
    replaced and equal from the stacked wire as it lies (strided rows or
    contiguous), at every case above and on random wires at bits 1, 2, 3, 4
-   and 8 over 1, 3, 8, 9 and 16 peers;
+   and 8 over 1, 3, 8, 9 and 16 peers; K2, K3, K6 and K7 likewise bitwise
+   the serial body and equal from the flat entry on the bucket as it lies
+   (contiguous, 4 bytes off a 16-byte boundary, shorter than the code
+   length), at every case above and on random codebooks at bits 1, 2, 3, 4
+   and 8; the encode body's build must report no spill stores;
 4. main path: the paper's 8-client smallnet training through
    ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
@@ -50,13 +54,14 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    tnqsgd 2 bits over three buckets) on the card, held against the same
    step on the CPU;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
-   (x 8 peers) shape, K4, K5, K8 and K9 beside the serial body they
-   replaced (in turns), K11 at smallnet's, the mixed plan's and a 4 MB
-   bucket's P factor beside torch.linalg.qr and its global-memory path,
-   each beside its byte bound, K1/K10 at smallnet's bucket, K2-K9 at
-   smallnet's bucket and two_phase chunk (the decodes beside the serial
-   body), K12/K14 at each of its leaf sizes and the segmented K14 and K12
-   over a client's eight leaves beside their eight launches, the phase-2
+   (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
+   turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
+   factor beside torch.linalg.qr and its global-memory path, each beside
+   its byte bound, K1/K10 at smallnet's bucket, K2-K9 at smallnet's
+   bucket and two_phase chunk (beside the serial body; the encodes also
+   through the flat entry on stacked rows), K12/K14 at each of its leaf
+   sizes and the segmented K14 and K12 over a client's eight leaves
+   beside their eight launches, the phase-2
    kernels at a 4 MB bucket's chunk shape, one synced step's wall time per
    sync mode and method, and one per-tensor round's compression phase by
    phase.
@@ -69,6 +74,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -178,6 +184,10 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas info" in line:
                 print(f"[build] {name}.cu: {line.strip()}")
+    # the encode body keeps its operands in registers: no kernel of it spills
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", reports["encode_fused"])]
+    check(spills and not any(spills), f"encode_fused.cu spills: {spills}")
+    print(f"[build] encode_fused.cu: {len(spills)} kernels, no spill stores")
 
     # -- 3. kernel parity -------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -239,6 +249,46 @@ def main() -> int:
         for wire in (strided, strided.contiguous()):
             agree(name, kdec.from_wire(kernel, wire, meta, n, bits), got,
                   f"from the wire (row stride {wire.stride(0)}), {at}")
+    ENCODES = {kenc.codebook_encode_pack_resid_2d: (ref.codebook_encode_pack_residual, False, True),
+               kenc.uniform_encode_pack_resid_2d: (ref.uniform_encode_pack_residual, True, True),
+               kenc.codebook_encode_pack_2d: (ref.codebook_encode_pack, False, False),
+               kenc.uniform_encode_pack_2d: (ref.uniform_encode_pack, True, False)}
+
+    def encode_parity(kernel, c2, rand, meta, n: int, bits: int, at: str):
+        """An encode kernel on the padded tile bitwise its plain version and
+        the serial body it replaced, and the same bits from the flat entry
+        on the bucket as it lies: contiguous, 4 bytes off a 16-byte
+        boundary (as a row of the stacked EF-off bucket can lie), and
+        shorter than the code length with the rest read as zero (as
+        encode_chunks hands it over).  Returns the kernel's output."""
+        plain, uniform, resid = ENCODES[kernel]
+        name = kernels.kernel_name(kernel)
+        got = kernel(c2, rand, meta, n, bits)
+        outs = got if resid else (got,)
+        want = plain(c2, rand, meta, n, bits)
+        serial = kenc.serial_2d(uniform, resid, c2, rand, meta, n, bits)
+        for what, a, b, c in zip(("words", "residual"), outs, want if resid else (want,),
+                                 serial if resid else (serial,)):
+            agree(name, a, b, f"{what} at {at}")
+            agree(name, a, c, f"{what} against the serial body, at {at}")
+        m = max(1, n - 37)
+        short = c2.clone()
+        short.reshape(-1)[m:] = 0.0
+        short_outs = kernel(short, rand, meta, n, bits)
+        short_outs = short_outs if resid else (short_outs,)
+        buf = torch.empty(n + 1, device=dev)
+        buf[1:] = c2.reshape(-1)[:n]
+        for flat, ref_outs in ((c2.reshape(-1)[:n], outs), (buf[1:], outs),
+                               (short.reshape(-1)[:m], short_outs)):
+            k = flat.numel()
+            f = kenc.encode_flat(kernel, flat, n, rand, meta, bits)
+            f = f if resid else (f,)
+            where = f"flat entry, {k} of {n} elements at byte offset {flat.data_ptr() % 16}, {at}"
+            agree(name, f[0], ref_outs[0], f"words from the {where}")
+            if resid:
+                agree(name, f[1], ref_outs[1].reshape(-1)[:k], f"residual from the {where}")
+        return got
+
     # (elements, bits, peers): the convention shapes, then the main path's
     # own at 3 bits.  two_phase (8,) encodes smallnet's bucket padded for 8
     # chunks and decodes, re-encodes and row-decodes its chunks over 8
@@ -274,25 +324,17 @@ def main() -> int:
             note_err("encode_fused.ef_correct_stats_2d", err)
             lv = plan_levels(c, n, bits)
             rand = prng.uniform(prng.key(1000 * p + bits), c.shape, device=dev)
-            w, r = kenc.codebook_encode_pack_resid_2d(c, rand, lv, n, bits)
-            w_ref, r_ref = ref.codebook_encode_pack_residual(c, rand, lv, n, bits)
-            check(torch.equal(w, w_ref), f"K2 words differ at n={n} bits={bits}")
-            check(torch.equal(r, r_ref), f"K2 residual differs at n={n} bits={bits}")
+            at = f"n={n} bits={bits}"
+            w, _ = encode_parity(kenc.codebook_encode_pack_resid_2d, c, rand, lv, n, bits, at)
             words.append(w)
             levels.append(lv)
-            at = f"n={n} bits={bits}"
-            wc = kenc.codebook_encode_pack_2d(c, rand, lv, n, bits)
-            agree("encode_fused.codebook_encode_pack_2d", wc,
-                  ref.codebook_encode_pack(c, rand, lv, n, bits), f"words at {at}")
+            wc = encode_parity(kenc.codebook_encode_pack_2d, c, rand, lv, n, bits, at)
             check(torch.equal(wc, w), f"K6 words differ from K2's at {at}")
             cwords.append(wc)
             alpha = plan(c, n, bits, "tqsgd").alpha.reshape(1).contiguous()
-            uw, ur = kenc.uniform_encode_pack_resid_2d(c, rand, alpha, n, bits)
-            uw_ref, ur_ref = ref.uniform_encode_pack_residual(c, rand, alpha, n, bits)
-            agree("encode_fused.uniform_encode_pack_resid_2d", uw, uw_ref, f"words at {at}")
-            agree("encode_fused.uniform_encode_pack_resid_2d", ur, ur_ref, f"residual at {at}")
-            agree("encode_fused.uniform_encode_pack_2d",
-                  kenc.uniform_encode_pack_2d(c, rand, alpha, n, bits), uw_ref, f"words at {at}")
+            uw, _ = encode_parity(kenc.uniform_encode_pack_resid_2d, c, rand, alpha, n, bits, at)
+            check(torch.equal(encode_parity(kenc.uniform_encode_pack_2d, c, rand, alpha, n, bits,
+                                            at), uw), f"K7 words differ from K3's at {at}")
             uwords.append(uw)
             alphas.append(alpha)
         words3 = torch.stack(words).contiguous()
@@ -307,8 +349,8 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"[parity] n={n} bits={bits} peers={peers}: K1, K10 counts/max exact, sums within "
               f"rtol {STATS_RTOL}, bitwise deterministic; K2, K3, K6, K7 words and residuals, "
-              f"K4, K5 means and K8, K9 rows bitwise, and bitwise the serial body and the "
-              f"strided wire entry")
+              f"K4, K5 means and K8, K9 rows bitwise, and bitwise the serial bodies, the flat "
+              f"encode entry (aligned, 4 bytes off, shorter than n) and the strided wire entry")
         if (n, bits, peers) == (FULL_N, 3, PEERS):
             full_inputs = dict(g=g, e=e, c=[to2d(heavy(n, 1e-3)) for _ in range(PEERS)],
                                levels=levels, words3=words3, levels2=levels2,
@@ -335,6 +377,22 @@ def main() -> int:
     print("[parity] K4, K5, K8, K9 on random wires, bits 1, 2, 3, 4, 8 x peers 1, 3, 8, 9, 16 x "
           f"n 1000, {RAGGED_N}: bitwise the plain versions and the serial body, from the padded "
           "words and from the contiguous and the strided wire")
+
+    # the encode body at every width 1, 2, 3, 4 and 8 (the codebook in
+    # registers up to 4, in shared memory above), at a partial last row and
+    # at RAGGED_N, on random sorted codebooks and alphas
+    for bits in (1, 2, 3, 4, 8):
+        for n in (1000, RAGGED_N):
+            c2 = to2d(heavy(n, 1e-3))
+            rand = prng.uniform(prng.key(77 * n + bits), c2.shape, device=dev)
+            lv = torch.sort(1e-3 * torch.randn(2**bits, generator=gen, device=dev)).values
+            alpha = 1e-3 + 2e-3 * torch.rand(1, generator=gen, device=dev)
+            for kernel, (_, uniform, _) in ENCODES.items():
+                encode_parity(kernel, c2, rand, alpha if uniform else lv, n, bits,
+                              f"random codebook n={n} bits={bits}")
+    torch.cuda.synchronize()
+    print("[parity] K2, K3, K6, K7 on random codebooks and alphas, bits 1, 2, 3, 4, 8 x n 1000, "
+          f"{RAGGED_N}: bitwise the plain versions and the serial body, and from the flat entry")
 
     # K1/K10 on inputs that fill every bin (1% exact zeros, 1% subnormals,
     # under- and overflow, the rest at least 0.1% off each bin edge), all
@@ -831,6 +889,9 @@ def main() -> int:
     def serial_body(uniform: bool, reduce: bool):
         return lambda w3, meta, b: kdec.serial_3d(uniform, reduce, w3, meta, b)
 
+    def serial_encode(uniform: bool, resid: bool):
+        return lambda g2, r, meta, n_, b: kenc.serial_2d(uniform, resid, g2, r, meta, n_, b)
+
     def in_turns(fn, old, calls) -> tuple[list, list]:
         """A kernel and the body it replaced timed in turns (new, old, new,
         old) on the same calls."""
@@ -854,7 +915,8 @@ def main() -> int:
             bytes=4 * n + tile, source="src/repro_torch/kernels/csrc/stats.cu",
             replaces="src/repro/kernels/stats.py:106"),
         "encode_fused.codebook_encode_pack_resid_2d": dict(
-            fn=kenc.codebook_encode_pack_resid_2d, plain=ref.codebook_encode_pack_residual,
+            fn=kenc.codebook_encode_pack_resid_2d,
+            serial=serial_encode(False, True), plain=ref.codebook_encode_pack_residual,
             calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 * (2**bits) + wbytes + 4 * n,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
@@ -869,7 +931,8 @@ def main() -> int:
     }
     spec.update({
         "encode_fused.uniform_encode_pack_resid_2d": dict(
-            fn=kenc.uniform_encode_pack_resid_2d, plain=ref.uniform_encode_pack_residual,
+            fn=kenc.uniform_encode_pack_resid_2d,
+            serial=serial_encode(True, True), plain=ref.uniform_encode_pack_residual,
             calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 + wbytes + 4 * n,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
@@ -882,13 +945,15 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/decode.cu",
             replaces="src/repro/kernels/decode.py:159"),
         "encode_fused.codebook_encode_pack_2d": dict(
-            fn=kenc.codebook_encode_pack_2d, plain=ref.codebook_encode_pack,
+            fn=kenc.codebook_encode_pack_2d,
+            serial=serial_encode(False, False), plain=ref.codebook_encode_pack,
             calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 * (2**bits) + wbytes,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
             replaces="src/repro/kernels/encode_fused.py:206"),
         "encode_fused.uniform_encode_pack_2d": dict(
-            fn=kenc.uniform_encode_pack_2d, plain=ref.uniform_encode_pack,
+            fn=kenc.uniform_encode_pack_2d,
+            serial=serial_encode(True, False), plain=ref.uniform_encode_pack,
             calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
             bytes=2 * 4 * n + 4 + wbytes,
             source="src/repro_torch/kernels/csrc/encode_fused.cu",
@@ -1005,11 +1070,15 @@ def main() -> int:
     # decodes the 8 peers' wires with K4/K5) and its two_phase chunk
     # (25,888: K4/K5 decode the 8 peers' chunk wires, K6/K7 re-encode a
     # chunk mean, K8/K9 decode the 8 re-encoded chunks); L2-resident, as on
-    # the path; each decode beside the serial body it replaced, in turns
+    # the path; each kernel beside the serial body it replaced, in turns,
+    # and each encode also through the flat entry on the rows of a stacked
+    # (8, n) tensor, as the path hands it the peers' buckets (at the
+    # bucket every other row lies 8 bytes off a 16-byte boundary)
     tp_chunk = chunk(cfg3, SLICE_N, PEERS)
     for shape, sn in (("bucket", SLICE_N), ("two_phase_chunk", tp_chunk)):
         srows = -(-sn // 128)
-        sc = [to2d(heavy(sn, 1e-3)) for _ in range(PEERS)]
+        stacked = heavy(PEERS * sn, 1e-3).reshape(PEERS, sn)
+        sc = [to2d(x) for x in stacked]
         srand = [prng.uniform(prng.key(200 + p), (srows, 128), device=dev) for p in range(PEERS)]
         slv = [plan_levels(x, sn, bits) for x in sc]
         sal = [plan(x, sn, bits, "tqsgd").alpha.reshape(1).contiguous() for x in sc]
@@ -1023,13 +1092,17 @@ def main() -> int:
         swb = srows * 4 * bits * 4
         for name, fn, plain_fn, calls, nbytes, serial in (
                 ("encode_fused.codebook_encode_pack_resid_2d", kenc.codebook_encode_pack_resid_2d,
-                 ref.codebook_encode_pack_residual, cenc, 3 * 4 * sn + lvb + swb, None),
+                 ref.codebook_encode_pack_residual, cenc, 3 * 4 * sn + lvb + swb,
+                 serial_encode(False, True)),
                 ("encode_fused.uniform_encode_pack_resid_2d", kenc.uniform_encode_pack_resid_2d,
-                 ref.uniform_encode_pack_residual, uenc, 3 * 4 * sn + 4 + swb, None),
+                 ref.uniform_encode_pack_residual, uenc, 3 * 4 * sn + 4 + swb,
+                 serial_encode(True, True)),
                 ("encode_fused.codebook_encode_pack_2d", kenc.codebook_encode_pack_2d,
-                 ref.codebook_encode_pack, cenc, 2 * 4 * sn + lvb + swb, None),
+                 ref.codebook_encode_pack, cenc, 2 * 4 * sn + lvb + swb,
+                 serial_encode(False, False)),
                 ("encode_fused.uniform_encode_pack_2d", kenc.uniform_encode_pack_2d,
-                 ref.uniform_encode_pack, uenc, 2 * 4 * sn + 4 + swb, None),
+                 ref.uniform_encode_pack, uenc, 2 * 4 * sn + 4 + swb,
+                 serial_encode(True, False)),
                 ("decode.codebook_decode_reduce_3d", kdec.codebook_decode_reduce_3d,
                  ref.codebook_decode_reduce, cdec, PEERS * (swb + lvb) + 4 * sn,
                  serial_body(False, True)),
@@ -1042,12 +1115,12 @@ def main() -> int:
                 ("decode.uniform_decode_rows_3d", kdec.uniform_decode_rows_3d,
                  ref.uniform_decode_rows, udec, PEERS * (swb + 4 + 4 * sn),
                  serial_body(True, False))):
-            extra = {}
-            if serial is None:
-                ms = graph_ms(fn, calls)
-            else:
-                new_ms, old_ms = in_turns(fn, serial, calls)
-                ms, extra = new_ms[0], {"ms_turns": new_ms, "serial_body_ms_turns": old_ms}
+            new_ms, old_ms = in_turns(fn, serial, calls)
+            ms, extra = new_ms[0], {"ms_turns": new_ms, "serial_body_ms_turns": old_ms}
+            if name.startswith("encode_fused."):
+                extra["flat_entry_ms"] = graph_ms(
+                    lambda x, r, meta, n_, b: kenc.encode_flat(fn, x, n_, r, meta, b),
+                    [(stacked[p],) + a[1:] for p, a in enumerate(calls)])
             b_ms, b_by = bound(nbytes)
             print("[time] " + json.dumps({
                 "main_path_shape": shape, "kernel": name, "elements": sn, "peers": PEERS,

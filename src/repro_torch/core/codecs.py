@@ -42,11 +42,11 @@ _UNIFORM_DECODE = ("qsgd", "tqsgd", "dsgd")
 
 
 def _encode(cfg: CompressorConfig, op: str, flat: torch.Tensor, meta: QuantMeta,
-            key: torch.Tensor):
+            key: torch.Tensor, **kw):
     """The uniform or codebook flavour of ``ops.<flavour>_<op>``."""
     if cfg.method in _UNIFORM_DECODE:
-        return getattr(ops, f"uniform_{op}")(flat, meta.alpha, cfg.bits, key)
-    return getattr(ops, f"codebook_{op}")(flat, meta.levels, cfg.bits, key)
+        return getattr(ops, f"uniform_{op}")(flat, meta.alpha, cfg.bits, key, **kw)
+    return getattr(ops, f"codebook_{op}")(flat, meta.levels, cfg.bits, key, **kw)
 
 
 def _decode(cfg: CompressorConfig, op: str, words: torch.Tensor, levels: torch.Tensor,
@@ -179,14 +179,13 @@ class QuantizerCodec(Codec):
                       key: torch.Tensor, n_chunks: int):
         """Flat (n,) -> ((n_chunks, chunk_wire_words) rows, (n,) EF residual).
 
-        The bucket is zero-padded to ``n_chunks·chunk_elems`` before the one
-        encode pass, so the uniforms are drawn on the padded tile."""
-        padded = torch.zeros(n_chunks * self.chunk_elems(cfg, flat.numel(), n_chunks),
-                             dtype=flat.dtype, device=flat.device)
-        padded[:flat.numel()] = flat
-        words, resid = _encode(cfg, "encode_pack_residual", padded, pln, key)
+        One encode pass at code length ``n_chunks·chunk_elems``: the bucket
+        is encoded as if zero-padded to it, so the uniforms are drawn on the
+        padded tile.  On the card the kernel reads the bucket as it lies."""
+        n = n_chunks * self.chunk_elems(cfg, flat.numel(), n_chunks)
+        words, resid = _encode(cfg, "encode_pack_residual", flat, pln, key, n=n)
         lv = _levels_to_wire(pln.levels).reshape(1, -1).expand(n_chunks, -1)
-        return torch.cat([words.reshape(n_chunks, -1), lv], dim=1), resid[:flat.numel()]
+        return torch.cat([words.reshape(n_chunks, -1), lv], dim=1), resid
 
 
 _REGISTRY: dict[str, Codec] = {}

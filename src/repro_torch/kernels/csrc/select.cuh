@@ -1,8 +1,9 @@
 // The shared stochastic-select bodies of the encode kernels (encode_fused.cu
 // K2, K3, K6, K7 and quantize.cu K12, K14, K16, K17): one source for the
 // arithmetic of src/repro/kernels/quantize.py's uniform_select and
-// codebook_select, and for _pack_block's bit planes, so that every kernel
-// family writes the same codes for the same inputs.
+// codebook_select (with the codebook in shared memory or in registers), and
+// for _pack_block's bit planes, so that every kernel family writes the same
+// codes for the same inputs.
 //
 // Both bodies must be compiled with -fmad=false and IEEE division: floor(u)
 // flips at integers and the rounding compares rand with a quotient, so each
@@ -46,6 +47,39 @@ __device__ __forceinline__ Pick codebook_select(float x0, float r, const float* 
   k = min(max(k, 0), s - 1);
   const float lo = lv[k], hi = lv[k + 1];
   const bool up = r < (x - lo) / fmaxf(hi - lo, 1e-12f);
+  return {k + (int)up, up ? hi : lo};
+}
+
+// codebook_select with the codebook lv[0..S] in registers and, on lane j
+// < S of the warp, lane_lo = lv[j] and lane_d = fmaxf(lv[j+1] - lv[j],
+// 1e-12f) (and lane_hi = lv[j+1] where VALUE asks for levels[code]): the
+// same clip, compare-count, clamp, endpoints and quotient, so the same
+// bits.  The endpoints and the divisor of interval k come from lane k by
+// shuffle, since a register array indexed at run time would spill to local
+// memory.  Every lane of the warp must call it.
+template <int S, bool VALUE>
+__device__ __forceinline__ Pick codebook_select_lanes(float x0, float r, const float (&lv)[S + 1],
+                                                      float lane_lo, float lane_hi, float lane_d) {
+  const float alpha = lv[S];
+  const float x = fminf(fmaxf(x0, -alpha), alpha);
+  int k = 0;
+#pragma unroll
+  for (int j = 1; j <= S; ++j) k += x >= lv[j];
+  k = min(max(k, 0), S - 1);
+  const float lo = __shfl_sync(FULL_MASK, lane_lo, k);
+  const float d = __shfl_sync(FULL_MASK, lane_d, k);
+  float hi = lo;
+  if constexpr (VALUE) hi = __shfl_sync(FULL_MASK, lane_hi, k);
+  // a zero numerator gives a quotient of zero (d > 0), so r < a / d is r <
+  // 0; the branch keeps such lanes (x clipped onto levels[0]) out of the
+  // division, whose zero check sends the whole warp down its slow path
+  const float a = x - lo;
+  bool up;
+  if (a != 0.0f) {
+    up = r < a / d;
+  } else {
+    up = r < 0.0f;
+  }
   return {k + (int)up, up ? hi : lo};
 }
 

@@ -9,8 +9,14 @@ four encode kernels round c stochastically onto the bucket's codebook
 (``codebook_*``) or onto the uniform grid over [−α, α] (``uniform_*``),
 pack the codes into the wire words and, in the ``*_resid_2d`` flavours,
 write the next EF residual ``c − dequant(code)`` in the same pass
-(``csrc/encode_fused.cu``).  All take CUDA tensors only; their plain
-PyTorch versions are in ``kernels.ref``.
+(``csrc/encode_fused.cu``).  The ``*_2d`` entry points take the JAX
+package's zero-padded (rows, 128) tile; :func:`encode_flat` launches the
+same kernel on the bucket as it lies (any alignment, shorter than the code
+length), reading the elements past it as zero, so the card path needs no
+padded copy.  :func:`serial_2d` launches the one-thread-per-element body
+the kernel replaced, uncounted, for the card checks and timings alone.
+All take CUDA tensors only; their plain PyTorch versions are in
+``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -60,73 +66,137 @@ def ef_correct_stats_flat(g: torch.Tensor, e: torch.Tensor, n: int):
 ef_correct_stats_2d.launches = 0
 
 
-def _check_encode(g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor, n: int,
-                  bits: int, uniform: bool) -> None:
-    check_2d("g", g2)
-    check_2d("rand", rand)
-    if rand.shape != g2.shape or rand.device != g2.device:
-        raise ValueError("rand must match g in shape and device")
+def _check_meta(meta: torch.Tensor, bits: int, uniform: bool, device) -> None:
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in [1, 8], got {bits}")
     shape = (1,) if uniform else (2**bits,)
     what = "alpha" if uniform else "levels"
-    if (meta.shape != shape or meta.device != g2.device or meta.dtype != torch.float32
+    if (meta.shape != shape or meta.device != device or meta.dtype != torch.float32
             or not meta.is_contiguous()):
         raise ValueError(f"{what} must be a contiguous {shape} fp32 tensor on "
-                         f"{g2.device} for bits={bits}, got {tuple(meta.shape)} "
+                         f"{device} for bits={bits}, got {tuple(meta.shape)} "
                          f"{meta.dtype} on {meta.device}")
+
+
+def _check_rand(rand: torch.Tensor, rows: int, device) -> None:
+    check_2d("rand", rand)
+    if rand.shape != (rows, LANES) or rand.device != device or rand.data_ptr() % 16:
+        raise ValueError(f"rand must be a 16-byte aligned ({rows}, {LANES}) tile on {device}, "
+                         f"got {tuple(rand.shape)} on {rand.device} at byte offset "
+                         f"{rand.data_ptr() % 16}")
+
+
+def _check_2d(g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor, n: int, bits: int,
+              uniform: bool) -> None:
+    check_2d("g", g2)
+    _check_rand(rand, g2.shape[0], g2.device)
+    _check_meta(meta, bits, uniform, g2.device)
     if not 1 <= n <= g2.numel():
         raise ValueError(f"n={n} outside [1, {g2.numel()}]")
 
 
-def _launch(kernel, fn_name: str, g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor,
-            n: int, bits: int, uniform: bool, resid: bool):
-    _check_encode(g2, rand, meta, n, bits, uniform)
-    fn = _build.bind("encode_fused", fn_name, [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-        + [ctypes.c_void_p] * (3 if resid else 2))
-    rows = g2.shape[0]
-    words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=g2.device)
+def _launch(kernel, c: torch.Tensor, n: int, rows: int, rand: torch.Tensor, meta: torch.Tensor,
+            bits: int):
+    """One launch of ``kernel``'s body on checked operands: the first
+    ``c.numel()`` elements of the (rows, 128) tile read from c, the rest as
+    zero.  Returns the (rows, 4·bits) words and, for the residual flavours,
+    the residual of c's elements."""
+    fn_name, _, resid = _ENTRY[kernel.__name__]
+    fn = _build.bind("encode_fused", fn_name, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * (3 if resid else 2))
+    words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=c.device)
     out = [_build.ptr(words)]
     if resid:
-        r = torch.empty_like(g2)
+        r = torch.empty(c.numel(), dtype=torch.float32, device=c.device)
         out.append(_build.ptr(r))
-    with torch.cuda.device(g2.device):
-        code = fn(_build.ptr(g2), _build.ptr(rand), _build.ptr(meta), 2**bits - 1, bits, n, rows,
-                  *out, _build.stream(g2))
+    with torch.cuda.device(c.device):
+        code = fn(_build.ptr(c), c.numel(), _build.ptr(rand), _build.ptr(meta), bits, n, rows,
+                  *out, _build.stream(c))
     _build.check(code, kernel.__name__)
     kernel.launches += 1
     return (words, r) if resid else words
+
+
+def _launch_2d(kernel, g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor, n: int,
+               bits: int):
+    _check_2d(g2, rand, meta, n, bits, _ENTRY[kernel.__name__][1])
+    out = _launch(kernel, g2, n, g2.shape[0], rand, meta, bits)
+    return (out[0], out[1].reshape(g2.shape)) if isinstance(out, tuple) else out
 
 
 def codebook_encode_pack_resid_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
                                   n: int, bits: int):
     """K2: g, rand (rows, 128) fp32 CUDA, levels (s+1,) fp32 ->
     ((rows, 4·bits) int32 wire words, (rows, 128) fp32 residual)."""
-    return _launch(codebook_encode_pack_resid_2d, "repro_codebook_encode_pack_resid", g2, rand,
-                   levels, n, bits, uniform=False, resid=True)
+    return _launch_2d(codebook_encode_pack_resid_2d, g2, rand, levels, n, bits)
 
 
 def uniform_encode_pack_resid_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
                                  n: int, bits: int):
     """K3: g, rand (rows, 128) fp32 CUDA, alpha (1,) fp32 ->
     ((rows, 4·bits) int32 wire words, (rows, 128) fp32 residual)."""
-    return _launch(uniform_encode_pack_resid_2d, "repro_uniform_encode_pack_resid", g2, rand,
-                   alpha, n, bits, uniform=True, resid=True)
+    return _launch_2d(uniform_encode_pack_resid_2d, g2, rand, alpha, n, bits)
 
 
 def codebook_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
                             n: int, bits: int):
     """K6: K2's wire words alone."""
-    return _launch(codebook_encode_pack_2d, "repro_codebook_encode_pack", g2, rand, levels, n,
-                   bits, uniform=False, resid=False)
+    return _launch_2d(codebook_encode_pack_2d, g2, rand, levels, n, bits)
 
 
 def uniform_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
                            n: int, bits: int):
     """K7: K3's wire words alone."""
-    return _launch(uniform_encode_pack_2d, "repro_uniform_encode_pack", g2, rand, alpha, n,
-                   bits, uniform=True, resid=False)
+    return _launch_2d(uniform_encode_pack_2d, g2, rand, alpha, n, bits)
 
 
+def encode_flat(kernel, c: torch.Tensor, n: int, rand: torch.Tensor, meta: torch.Tensor,
+                bits: int):
+    """``kernel`` (one of the four encode wrappers above, whose launch it
+    counts) on the bucket as it lies: c contiguous fp32 CUDA, m = c.numel()
+    elements at any 4-byte alignment, code length n >= m (elements m .. n-1
+    read as zero, as the zero-padded tile has them), rand the 16-byte
+    aligned (ceil(n/128), 128) tile ``prng.uniform`` draws.  Returns the
+    (rows, 4·bits) words ``kernel`` writes on c zero-padded to that tile,
+    bit for bit, and for the residual flavours the (m,) residual of c."""
+    check_flat("c", c)
+    m = c.numel()
+    if n < m:
+        raise ValueError(f"code length n={n} below the bucket's {m} elements")
+    rows = -(-n // LANES)
+    _check_rand(rand, rows, c.device)
+    _check_meta(meta, bits, _ENTRY[kernel.__name__][1], c.device)
+    return _launch(kernel, c, n, rows, rand, meta, bits)
+
+
+def serial_2d(uniform: bool, resid: bool, g2: torch.Tensor, rand: torch.Tensor,
+              meta: torch.Tensor, n: int, bits: int):
+    """The replaced one-thread-per-element body on the ``*_2d`` operands:
+    bitwise the kernel it stands beside; launched only to check and time
+    that kernel, so it counts no launch."""
+    _check_2d(g2, rand, meta, n, bits, uniform)
+    fn = _build.bind("encode_fused", "repro_encode_serial", [ctypes.c_int, ctypes.c_int] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    rows = g2.shape[0]
+    words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=g2.device)
+    r = torch.empty_like(g2) if resid else None
+    with torch.cuda.device(g2.device):
+        code = fn(int(uniform), int(resid), _build.ptr(g2), _build.ptr(rand), _build.ptr(meta),
+                  bits, n, rows, _build.ptr(words), _build.ptr(r) if resid else None,
+                  _build.stream(g2))
+    _build.check(code, "encode serial body")
+    return (words, r) if resid else words
+
+
+# wrapper name -> (C entry point, uniform, residual)
+_ENTRY = {
+    "codebook_encode_pack_resid_2d": ("repro_codebook_encode_pack_resid", False, True),
+    "uniform_encode_pack_resid_2d": ("repro_uniform_encode_pack_resid", True, True),
+    "codebook_encode_pack_2d": ("repro_codebook_encode_pack", False, False),
+    "uniform_encode_pack_2d": ("repro_uniform_encode_pack", True, False),
+}
 for _k in (codebook_encode_pack_resid_2d, uniform_encode_pack_resid_2d, codebook_encode_pack_2d,
            uniform_encode_pack_2d):
     _k.launches = 0

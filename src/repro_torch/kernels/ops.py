@@ -1,14 +1,16 @@
 """Public wrappers around the port's kernels: layout, RNG draw and dispatch.
 
-The counterpart of ``repro.kernels.ops``.  Each wrapper pads a flat bucket
-to the (rows, 128) layout (on the card the statistics kernels K1 and K10
+The counterpart of ``repro.kernels.ops``.  Each wrapper draws the
+stochastic-rounding uniforms on the (rows, 128) tile of a flat bucket
+(element i's counters follow from i and the tile's size, exactly as in the
+JAX package) and sends the operands to the kernel when they lie on the
+card or to the plain version in ``kernels.ref`` when they lie on the CPU.
+The plain versions take the bucket zero-padded to that tile.  On the card
+the statistics kernels K1 and K10 and the fused encodes K2, K3, K6 and K7
 take the bucket, and the decodes K4, K5, K8 and K9 the stacked wire, as it
-lies instead), draws the stochastic-rounding
-uniforms on that padded tile (element i's counters follow from i and the
-tile's size, exactly as in the JAX package), and sends the operands to
-the kernel when they lie on the card or to the plain version in
-``kernels.ref`` when they lie on the CPU.  There is no switch between the two: the device decides, and a card
-tensor either launches its kernel or raises.
+lies; the per-tensor kernels K12–K17 take the padded tile there too.
+There is no switch between the two: the device decides, and a card tensor
+either launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -37,11 +39,17 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for tensors on {x.device}")
 
 
-def _to_2d(x: torch.Tensor, dtype=torch.float32) -> tuple[torch.Tensor, int]:
-    n = x.numel()
+def _to_2d(x: torch.Tensor, dtype=torch.float32,
+           n: int | None = None) -> tuple[torch.Tensor, int]:
+    """``x`` flat, zero-padded to the (ceil(n/128), 128) tile of its code
+    length n (its own length by default), and n."""
+    m = x.numel()
+    n = m if n is None else n
+    if n < m:
+        raise ValueError(f"code length n={n} below the bucket's {m} elements")
     rows = -(-n // LANES)
     x2 = torch.zeros(rows * LANES, dtype=dtype, device=x.device)
-    x2[:n] = x.reshape(-1)
+    x2[:m] = x.reshape(-1)
     return x2.reshape(rows, LANES), n
 
 
@@ -95,34 +103,48 @@ def _draw(g: torch.Tensor, key: torch.Tensor):
     return g2, n, prng.uniform(key, g2.shape, device=g2.device)
 
 
-def _encode(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int, key: torch.Tensor):
-    """Pad ``g`` to (rows, 128), draw ``rand`` on that tile, encode; returns
-    the ``packed_size(n, bits)`` words, and the (n,) residual where the
-    kernel writes one."""
-    g2, n, rand = _draw(g, key)
-    out = (kernel if _on_card(g2) else plain)(g2, rand, meta, n, bits)
+def _encode(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int, key: torch.Tensor,
+            n: int | None = None):
+    """Encode flat ``g`` at code length n (g's length by default; elements
+    past g count as zero) with ``rand`` drawn on the (ceil(n/128), 128)
+    tile: the kernel on g as it lies (``encode_fused.encode_flat``), or the
+    plain version on g zero-padded to the tile.  Returns the
+    ``packed_size(n, bits)`` words, and g's residual where the kernel
+    writes one."""
+    card, m = _on_card(g), g.numel()
+    n = m if n is None else n
+    rand = prng.uniform(key, (-(-n // LANES), LANES), device=g.device)
+    if card:
+        out = _e.encode_flat(kernel, _f32(g.reshape(-1)), n, rand, meta, bits)
+    else:
+        out = plain(_to_2d(g, n=n)[0], rand, meta, n, bits)
     words, resid = out if isinstance(out, tuple) else (out, None)
     words = words.reshape(-1)[:packed_size(n, bits)]
-    return words if resid is None else (words, resid.reshape(-1)[:n])
+    return words if resid is None else (words, resid.reshape(-1)[:m])
 
 
 def codebook_encode_pack_residual(g: torch.Tensor, levels: torch.Tensor, bits: int,
-                                  key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                                  key: torch.Tensor, n: int | None = None
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stochastic codebook encode + bit-pack + EF residual (K2).
 
     Returns ``(words, residual)``: the ``packed_size(n, bits)`` int32 wire
-    words (the bits of ``pack_codes``) and the exact ``g − levels[code]``.
+    words (the bits of ``pack_codes``) and the exact ``g − levels[code]``
+    of g's elements.  ``n`` (g's length by default) is the code length: g
+    is encoded as if zero-padded to n elements.
     """
     return _encode(_e.codebook_encode_pack_resid_2d, ref.codebook_encode_pack_residual, g,
-                   _f32(levels), bits, key)
+                   _f32(levels), bits, key, n)
 
 
 def uniform_encode_pack_residual(g: torch.Tensor, alpha: torch.Tensor, bits: int,
-                                 key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                                 key: torch.Tensor, n: int | None = None
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Truncated uniform stochastic encode onto [−α, α] + bit-pack + EF
-    residual ``g − (code·2α/s − α)`` (K3).  ``alpha`` stays on the device."""
+    residual ``g − (code·2α/s − α)`` (K3), ``n`` as in
+    :func:`codebook_encode_pack_residual`.  ``alpha`` stays on the device."""
     return _encode(_e.uniform_encode_pack_resid_2d, ref.uniform_encode_pack_residual, g,
-                   _alpha(alpha), bits, key)
+                   _alpha(alpha), bits, key, n)
 
 
 def codebook_encode_pack(g: torch.Tensor, levels: torch.Tensor, bits: int,

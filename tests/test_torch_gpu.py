@@ -17,7 +17,9 @@ equal across two launches, the register and the global-memory path bitwise
 equal; the segmented K14 and K12 bitwise equal to their plain versions
 and to the one-tile kernel on each tile; the decode body bitwise the
 serial body it replaced, and equal from the padded words and from the
-stacked wire as it lies.
+stacked wire as it lies; the encode body (K2, K3, K6, K7) bitwise the
+serial body it replaced, and equal from the flat entry on the bucket as it
+lies (any 4-byte alignment, shorter than the code length).
 """
 import math
 
@@ -328,6 +330,108 @@ def test_decode_wire_entry_rejects_bad_wires(cuda):
             decode.from_wire(decode.codebook_decode_reduce_3d, words, lv, n, bits)
     with pytest.raises(ValueError):
         decode.from_wire(decode.codebook_decode_reduce_3d, wire, lv[:1], 1024, 3)
+
+
+# the encode body (K2, K3, K6, K7): every width a codebook can have up to 8
+# bits that the tests use (in registers up to 4, in shared memory above),
+# at a partial last row, off a multiple of 32, smallnet's bucket, a 4 MB
+# bucket and the two_phase (8,) and (2, 4)-pod chunks of smallnet's bucket
+ENCODE_BITS = [1, 2, 3, 4, 8]
+ENCODE_N = [1000, RAGGED_N, 206_922, 1_048_576, 25_888, 51_744]
+ENCODES = [(encode_fused.codebook_encode_pack_resid_2d, ref.codebook_encode_pack_residual, False,
+            True, ops.codebook_encode_pack_residual),
+           (encode_fused.uniform_encode_pack_resid_2d, ref.uniform_encode_pack_residual, True,
+            True, ops.uniform_encode_pack_residual),
+           (encode_fused.codebook_encode_pack_2d, ref.codebook_encode_pack, False, False, None),
+           (encode_fused.uniform_encode_pack_2d, ref.uniform_encode_pack, True, False, None)]
+
+
+def _encode_meta(gen, bits, device):
+    levels = torch.sort(1e-3 * torch.randn(2**bits, generator=gen, device=device)).values
+    alpha = 1e-3 + 2e-3 * torch.rand(1, generator=gen, device=device)
+    return levels, alpha
+
+
+def _outs(out, resid):
+    return out if resid else (out,)
+
+
+@pytest.mark.parametrize("n", ENCODE_N)
+@pytest.mark.parametrize("bits", ENCODE_BITS)
+def test_encode_body_bitwise(cuda, bits, n):
+    """Each of K2, K3, K6, K7 on the padded tile: bitwise its plain version
+    and the replaced serial body, and the same words and residual from the
+    flat entry on the bucket as it lies."""
+    gen = torch.Generator(device=cuda).manual_seed(bits * 1000 + n)
+    g2 = ops._to_2d(_heavy(gen, n, cuda))[0]
+    rand = prng.uniform(prng.key(bits + n), g2.shape, device=cuda)
+    levels, alpha = _encode_meta(gen, bits, cuda)
+    for kernel, plain, uniform, resid, _ in ENCODES:
+        meta = alpha if uniform else levels
+        got = _outs(kernel(g2, rand, meta, n, bits), resid)
+        want = _outs(plain(g2, rand, meta, n, bits), resid)
+        serial = _outs(encode_fused.serial_2d(uniform, resid, g2, rand, meta, n, bits), resid)
+        for a, b, c in zip(got, want, serial):
+            assert torch.equal(a, b) and torch.equal(a, c), (kernel.__name__, bits, n)
+        flat = _outs(encode_fused.encode_flat(kernel, g2.reshape(-1)[:n], n, rand, meta, bits),
+                     resid)
+        assert torch.equal(flat[0], got[0])
+        if resid:
+            assert torch.equal(flat[1], got[1].reshape(-1)[:n])
+
+
+@pytest.mark.parametrize("bits", [1, 3, 8])
+def test_encode_flat_entry_on_stacked_rows(cuda, bits):
+    """The flat entry on the rows of a stacked (peers, m) bucket, every
+    other one off a 16-byte boundary, at the code length encode_chunks
+    gives (m < n): equal to the kernel on the row zero-padded to n, and,
+    through ``kernels.ops`` with its draw, to the plain version on the CPU.
+    Each flat launch counts under its kernel; the serial body counts none."""
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.core.compressors import CompressorConfig
+
+    m, peers = 3001, 4
+    n = peers * get_codec("tnqsgd").chunk_elems(CompressorConfig(bits=bits), m, peers)
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    stacked = _heavy(gen, peers * m, cuda).reshape(peers, m)
+    levels, alpha = _encode_meta(gen, bits, cuda)
+    rand = prng.uniform(prng.key(bits), (-(-n // 128), 128), device=cuda)
+    assert n > m and {row.data_ptr() % 16 for row in stacked} == {0, 4, 8, 12}
+    for kernel, _, uniform, resid, wrap in ENCODES:
+        meta = alpha if uniform else levels
+        for i, row in enumerate(stacked):
+            kernels.reset_launch_counts()
+            got = _outs(encode_fused.encode_flat(kernel, row, n, rand, meta, bits), resid)
+            encode_fused.serial_2d(uniform, resid, ops._to_2d(row, n=n)[0], rand, meta, n, bits)
+            assert kernels.launch_counts() == {
+                kernels.kernel_name(k): int(k is kernel) for k in kernels.KERNELS}
+            want = _outs(kernel(ops._to_2d(row, n=n)[0], rand, meta, n, bits), resid)
+            assert torch.equal(got[0], want[0]), (kernel.__name__, i)
+            if resid:
+                assert got[1].shape == (m,) and torch.equal(got[1], want[1].reshape(-1)[:m])
+                key = prng.key(10 + i)
+                card = wrap(row, meta, bits, key, n=n)
+                cpu = wrap(row.cpu(), meta.cpu(), bits, key, n=n)
+                assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
+def test_encode_flat_entry_rejects_bad_buckets(cuda):
+    lv = torch.linspace(-1, 1, 8, device=cuda)
+    c = torch.randn(1000, device=cuda)
+    rand = prng.uniform(prng.key(0), (8, 128), device=cuda)
+    kernel = encode_fused.codebook_encode_pack_resid_2d
+    encode_fused.encode_flat(kernel, c, 1000, rand, lv, 3)
+    wide = torch.empty(8 * 128 + 1, device=cuda)
+    for bucket, n, r in ((torch.randn(2000, device=cuda)[::2], 1000, rand),  # not contiguous
+                         (c.half(), 1000, rand), (c.cpu(), 1000, rand),
+                         (c, 999, rand),                                     # m > n
+                         (c, 1100, rand),                                    # tile of 1,024
+                         (c, 1000, rand[:7]), (c, 1000, rand.double()),
+                         (c, 1000, wide[1:].view(8, 128))):                  # rand 4 bytes off
+        with pytest.raises(ValueError):
+            encode_fused.encode_flat(kernel, bucket, n, r, lv, 3)
+    with pytest.raises(ValueError):
+        encode_fused.encode_flat(kernel, c, 1000, rand, lv, 9)
 
 
 # K12-K17 at every leaf size of smallnet (each a tile shape the per-tensor
