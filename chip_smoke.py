@@ -24,7 +24,12 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    reconstruction) and a zero column; K12-K17 bitwise at a 4 MB tensor and
    at each of smallnet's eight leaf sizes (10 to 200,704 elements), 2, 3
    and 8 bits, with the per-tensor plan's α and levels, on the padded tile
-   and through their ``kernels.ops`` wrappers; the segmented K14 and K12
+   and through their ``kernels.ops`` wrappers; K16 and K17 (on the encode
+   body of K2-K7) also at every width 1 to 8 on random codebooks and α,
+   at n under one row, off a multiple of 32 and at 4 MB, their codes K12's
+   and K14's zeroed past n, from the flat entry on the tensor as it lies
+   (aligned, 4 bytes off) and through ``kernels.ops`` on the unpadded
+   tensor; the segmented K14 and K12
    (one launch over many tiles) bitwise against the plain version per tile
    at smallnet's eight leaves at 2, 3 and 8 bits, with mixed widths, and
    over 1 and 64 tiles; K4, K5, K8 and K9 also bitwise the serial body they
@@ -60,7 +65,8 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    its byte bound, K1/K10 at smallnet's bucket, K2-K9 at smallnet's
    bucket and two_phase chunk (beside the serial body; the encodes also
    through the flat entry on stacked rows), K12/K14 at each of its leaf
-   sizes and the segmented K14 and K12 over a client's eight leaves
+   sizes, K16/K17 at smallnet's largest leaf (200,704; also through the
+   flat entry), the segmented K14 and K12 over a client's eight leaves
    beside their eight launches, the phase-2
    kernels at a 4 MB bucket's chunk shape, one synced step's wall time per
    sync mode and method, and one per-tensor round's compression phase by
@@ -532,15 +538,48 @@ def main() -> int:
     # K12-K17: each kernel on the padded (rows, 128) tile against its plain
     # version, and each through its kernels.ops wrapper (flat in, the draw
     # on the padded tile, sliced to n) against the plain version on the
-    # same draw; K16/K17's words against pack_codes of K12/K14's codes.  At
-    # every leaf size of smallnet (each a tile shape the per-tensor path
-    # gives K12/K14) and a full 4 MB tensor, with α and the levels from the
-    # per-tensor plan (compressors.plan) that the path uses.
+    # same draw; K16/K17's codes against K12/K14's and their words against
+    # pack_codes of those.  At every leaf size of smallnet (each a tile
+    # shape the per-tensor path gives K12/K14) and a full 4 MB tensor, with
+    # α and the levels from the per-tensor plan (compressors.plan) that the
+    # path uses.
     from repro_torch.core import compressors
 
     Q = {k: f"quantize.{k}" for k in ("uniform_encode_2d", "uniform_decode_2d",
                                       "codebook_encode_2d", "codebook_decode_2d",
                                       "uniform_encode_pack_2d", "codebook_encode_pack_2d")}
+
+    def pack_parity(g, g2, key, rand, alpha, lv, uc, cc, n: int, bits: int, at: str) -> None:
+        """K16 and K17 on the padded tile bitwise their plain versions,
+        their codes K12's (uc) and K14's (cc) zeroed past n and their words
+        pack_codes of those codes; the same from the flat entry on g as it
+        lies and 4 bytes off a 16-byte boundary, and through kernels.ops on
+        the unpadded g (its draw: rand, from key)."""
+        buf = torch.empty(n + 1, device=dev)
+        buf[1:] = g
+        for name, kernel, plain, meta, unpacked, wrap in (
+                (Q["uniform_encode_pack_2d"], kq.uniform_encode_pack_2d,
+                 ref.uniform_encode_pack_codes, alpha, uc, ops.uniform_encode_packed),
+                (Q["codebook_encode_pack_2d"], kq.codebook_encode_pack_2d,
+                 ref.codebook_encode_pack_codes, lv, cc, ops.codebook_encode_packed)):
+            codes, words = kernel(g2, rand, meta, n, bits)
+            want_c, want_w = plain(g2, rand, meta, n, bits)
+            agree(name, codes, want_c, f"codes at {at}")
+            agree(name, words, want_w, f"words at {at}")
+            flat = unpacked.reshape(-1)[:n]
+            agree(name, codes.reshape(-1)[:n], flat, f"codes against the unpacked encode's at {at}")
+            wire = words.reshape(-1)[:packed_size(n, bits)]
+            agree(name, wire, pack_codes(flat, bits),
+                  f"words against pack_codes of the unpacked encode's codes at {at}")
+            for x in (g, buf[1:]):
+                where = f"flat entry at byte offset {x.data_ptr() % 16}, {at}"
+                fc, fw = kenc.encode_flat(kernel, x, n, rand, meta, bits)
+                agree(name, fc, codes, f"codes from the {where}")
+                agree(name, fw, words, f"words from the {where}")
+            w8, c8 = wrap(g, meta, bits, key)
+            agree(name, c8, flat.to(torch.uint8), f"ops codes at {at}")
+            agree(name, w8, wire, f"ops words at {at}")
+
     for n in sorted({math.prod(s) for s in SMALLNET_SHAPES} | {FULL_N}):
         for bits in (2, 3, 8):
             at = f"n={n} bits={bits}"
@@ -555,18 +594,7 @@ def main() -> int:
                   f"codes at {at}")
             cc = kq.codebook_encode_2d(g2, rand, lv)
             agree(Q["codebook_encode_2d"], cc, ref.codebook_encode(g2, rand, lv), f"codes at {at}")
-            for name, kernel, plain, meta, codes in (
-                    (Q["uniform_encode_pack_2d"], kq.uniform_encode_pack_2d,
-                     ref.uniform_encode_pack_codes, alpha, uc),
-                    (Q["codebook_encode_pack_2d"], kq.codebook_encode_pack_2d,
-                     ref.codebook_encode_pack_codes, lv, cc)):
-                pc, words = kernel(g2, rand, meta, n, bits)
-                want_c, want_w = plain(g2, rand, meta, n, bits)
-                agree(name, pc, want_c, f"codes at {at}")
-                agree(name, words, want_w, f"words at {at}")
-                flat = codes.reshape(-1)[:n]
-                agree(name, words.reshape(-1)[:packed_size(n, bits)], pack_codes(flat, bits),
-                      f"words against pack_codes of the unpacked encode's codes at {at}")
+            pack_parity(g, g2, key, rand, alpha, lv, uc, cc, n, bits, at)
             agree(Q["uniform_decode_2d"], kq.uniform_decode_2d(uc, alpha, bits),
                   ref.uniform_decode(uc, alpha, bits), f"values at {at}")
             agree(Q["codebook_decode_2d"], kq.codebook_decode_2d(cc, lv),
@@ -578,21 +606,37 @@ def main() -> int:
             c8 = ops.codebook_encode(g, lv, key)
             agree(Q["codebook_encode_2d"], c8, cc.reshape(-1)[:n].to(torch.uint8),
                   f"ops codes at {at}")
-            for name, wrap, meta, codes in ((Q["uniform_encode_pack_2d"],
-                                             ops.uniform_encode_packed, alpha, u8),
-                                            (Q["codebook_encode_pack_2d"],
-                                             ops.codebook_encode_packed, lv, c8)):
-                words, pc8 = wrap(g, meta, bits, key)
-                agree(name, pc8, codes, f"ops codes at {at}")
-                agree(name, words, pack_codes(codes, bits), f"ops words at {at}")
             agree(Q["uniform_decode_2d"], ops.uniform_decode(u8, alpha, bits),
                   ref.uniform_decode(uc, alpha, bits).reshape(-1)[:n], f"ops values at {at}")
             agree(Q["codebook_decode_2d"], ops.codebook_decode(c8, lv),
                   ref.codebook_decode(cc, lv).reshape(-1)[:n], f"ops values at {at}")
         torch.cuda.synchronize()
         print(f"[parity] n={n} bits=2, 3, 8: K12, K14 codes, K16, K17 codes and words, K13, K15 "
-              f"values bitwise, on the tile and through kernels.ops; K16/K17 words equal "
-              f"pack_codes of K12/K14's codes")
+              f"values bitwise, on the tile and through kernels.ops; K16/K17 codes equal "
+              f"K12/K14's zeroed past n, their words pack_codes of those, also from the flat "
+              f"entry (aligned, 4 bytes off)")
+
+    # K16 and K17 at every width 1 to 8 (the codebook in registers up to 4
+    # bits, in shared memory above) on random sorted codebooks and alphas:
+    # n under one row, off a multiple of 32 and of 128, and a 4 MB tensor
+    for bits in range(1, 9):
+        for n in (100, 1000, RAGGED_N, FULL_N):
+            at = f"random codebook n={n} bits={bits}"
+            g = heavy(n, 1e-3)
+            key = prng.key(31 * n + bits)
+            g2, _, rand = ops._draw(g, key)
+            lv = torch.sort(1e-3 * torch.randn(2**bits, generator=gen, device=dev)).values
+            alpha = 1e-3 + 2e-3 * torch.rand(1, generator=gen, device=dev)
+            uc = kq.uniform_encode_2d(g2, rand, alpha, bits)
+            agree(Q["uniform_encode_2d"], uc, ref.uniform_encode(g2, rand, alpha, bits),
+                  f"codes at {at}")
+            cc = kq.codebook_encode_2d(g2, rand, lv)
+            agree(Q["codebook_encode_2d"], cc, ref.codebook_encode(g2, rand, lv), f"codes at {at}")
+            pack_parity(g, g2, key, rand, alpha, lv, uc, cc, n, bits, at)
+    torch.cuda.synchronize()
+    print(f"[parity] K16, K17 on random codebooks and alphas, bits 1-8 x n 100, 1000, {RAGGED_N}, "
+          f"{FULL_N}: codes and words bitwise the plain versions, the codes K12/K14's zeroed past "
+          f"n, from the flat entry (aligned, 4 bytes off) and through kernels.ops")
 
     # the segmented K14: one launch over smallnet's eight leaf tiles (as
     # one client's round gives them) at 2, 3 and 8 bits, with mixed widths
@@ -989,6 +1033,7 @@ def main() -> int:
     # converted outside the timing); no single PyTorch call computes the
     # others.
     qsrc, qpy = "src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py"
+    esrc = "src/repro_torch/kernels/csrc/encode_fused.cu"    # K16, K17
     uc = [kq.uniform_encode_2d(fi["c"][p], rand[p], fi["alphas"][p], bits) for p in range(PEERS)]
     cc = [kq.codebook_encode_2d(fi["c"][p], rand[p], fi["levels"][p]) for p in range(PEERS)]
     cc64 = [c.to(torch.int64) for c in cc]
@@ -1015,11 +1060,11 @@ def main() -> int:
         "quantize.uniform_encode_pack_2d": dict(
             fn=kq.uniform_encode_pack_2d, plain=ref.uniform_encode_pack_codes,
             calls=[(fi["c"][p], rand[p], fi["alphas"][p], n, bits) for p in range(PEERS)],
-            bytes=12 * n + 4 + 4 + wbytes, source=qsrc, replaces=f"{qpy}:193"),
+            bytes=12 * n + 4 + 4 + wbytes, source=esrc, replaces=f"{qpy}:193"),
         "quantize.codebook_encode_pack_2d": dict(
             fn=kq.codebook_encode_pack_2d, plain=ref.codebook_encode_pack_codes,
             calls=[(fi["c"][p], rand[p], fi["levels"][p], n, bits) for p in range(PEERS)],
-            bytes=12 * n + lvb + 4 + wbytes, source=qsrc, replaces=f"{qpy}:232"),
+            bytes=12 * n + lvb + 4 + wbytes, source=esrc, replaces=f"{qpy}:232"),
     })
     check(set(spec) == set(launches), "every kernel needs a timing spec")
     per_step = {k: max(r["counts"][k] / len(r["hist"]) for r in runs.values()) for k in launches}
@@ -1149,6 +1194,31 @@ def main() -> int:
                 "ms": ms, "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms,
                 "bound_by": b_by, "x_bound": ms / b_ms, "bytes": nbytes,
                 "launches_per_round": PEERS, "card": card}))
+
+    # K16 and K17 at smallnet's largest leaf (200,704 elements, 1,568 rows),
+    # 8 distinct inputs, L2-resident; also through the flat entry that
+    # kernels.ops launches on the unpadded tensor.  No path launches them.
+    leaf, frows = 200_704, 200_704 // 128
+    fg = [heavy(leaf, 1e-3) for _ in range(PEERS)]
+    fr = [prng.uniform(prng.key(400 + p), (frows, 128), device=dev) for p in range(PEERS)]
+    fwb = frows * 4 * bits * 4
+    for name, fn, plain_fn, metas, nbytes in (
+            ("quantize.uniform_encode_pack_2d", kq.uniform_encode_pack_2d,
+             ref.uniform_encode_pack_codes,
+             [plan(to2d(x), leaf, bits, "tqsgd").alpha.reshape(1).contiguous() for x in fg],
+             12 * leaf + 4 + 4 + fwb),
+            ("quantize.codebook_encode_pack_2d", kq.codebook_encode_pack_2d,
+             ref.codebook_encode_pack_codes, [plan_levels(to2d(x), leaf, bits) for x in fg],
+             12 * leaf + lvb + 4 + fwb)):
+        calls = [(x.view(frows, 128), r, meta, leaf, bits) for x, r, meta in zip(fg, fr, metas)]
+        ms = graph_ms(fn, calls)
+        b_ms, b_by = bound(nbytes)
+        print("[time] " + json.dumps({
+            "per_tensor_leaf": name, "elements": leaf, "rows": frows, "bits": bits, "ms": ms,
+            "flat_entry_ms": graph_ms(lambda x, r, meta, n_, b: kenc.encode_flat(
+                fn, x.reshape(-1), n_, r, meta, b), calls),
+            "plain_ms": eager_ms(plain_fn, calls[:2]), "bound_ms": b_ms, "bound_by": b_by,
+            "x_bound": ms / b_ms, "bytes": nbytes, "launches_per_round": 0, "card": card}))
 
     # the segmented K14 as the per-tensor path launches it: one launch over
     # a client's eight leaf tiles (1,620 rows), the 8 clients' sets on

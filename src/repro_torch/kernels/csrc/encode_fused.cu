@@ -1,10 +1,14 @@
-// Fused encode -> bit-pack [-> error-feedback residual], codebook or uniform.
+// Fused encode -> bit-pack [-> error-feedback residual | codes], codebook
+// or uniform.
 //
-// One template, four TPU kernels of src/repro/kernels/encode_fused.py:
-//   <UNIFORM=false, RESID=true>   codebook_encode_pack_resid_2d (K2)
-//   <UNIFORM=true,  RESID=true>   uniform_encode_pack_resid_2d  (K3)
-//   <UNIFORM=false, RESID=false>  codebook_encode_pack_2d       (K6)
-//   <UNIFORM=true,  RESID=false>  uniform_encode_pack_2d        (K7)
+// One template, six TPU kernels, its output one of three (Out):
+//   <UNIFORM=false, RESID>  encode_fused.py codebook_encode_pack_resid_2d (K2)
+//   <UNIFORM=true,  RESID>  encode_fused.py uniform_encode_pack_resid_2d  (K3)
+//   <UNIFORM=false, WORDS>  encode_fused.py codebook_encode_pack_2d       (K6)
+//   <UNIFORM=true,  WORDS>  encode_fused.py uniform_encode_pack_2d        (K7)
+//   <UNIFORM=true,  CODES>  quantize.py     uniform_encode_pack_2d        (K16)
+//   <UNIFORM=false, CODES>  quantize.py     codebook_encode_pack_2d       (K17)
+// (TPU files under src/repro/kernels/.)
 //
 // Operands: the bucket c, of which the first m elements are read and every
 // later one counts as zero, with any 4-byte alignment; the explicit uniform
@@ -25,10 +29,13 @@
 // Codes past element n are zero.  The codes are packed into the wire: word
 // q*bits + j of a row holds bit j of the row's elements 32q .. 32q+31, lane
 // l in bit l (quantize._pack_block, i.e. core.quantizers.pack_codes).  With
-// RESID the residual of elements 0 .. m-1 is written.
+// RESID the residual of elements 0 .. m-1 is written; with CODES the int32
+// codes of the whole (rows, 128) tile, the zeros past n included: K14's
+// (K12's) codes on the same operands, zeroed past n (quantize._mask_tail).
 //
 // Bound: bytes.  It reads c and rand (8 B/element) and writes bits/8 B of
-// wire per element, plus the residual (4 B/element) with RESID.
+// wire per element, plus the residual or the codes (4 B/element) with RESID
+// or CODES.
 //
 // Design.  One warp per 128-element row, one compile-time BITS (1 to 8).
 // Lane l takes the row's elements 4l .. 4l+3: one 16-byte load of rand
@@ -45,25 +52,26 @@
 // memory, filled after the row's loads have gone out, and are walked by
 // codebook_select with s passed at run time: unrolled over 255 levels at
 // every element, the 7- and 8-bit K6 faulted on the card with an illegal
-// address.  With RESID the residual goes out as one 16-byte store a lane
-// before the words are packed.  Elements 32q .. 32q+31 lie on lanes 8q ..
-// 8q+7, so word q*BITS + j gathers lane t's bit-j nibble at bit 4t: a
-// multiply turns the four byte-wide codes' bit j into a nibble, three
-// xor-shuffles OR the group's eight nibbles, and lane t < BITS of the
-// group stores word j = t, so a row's words go out in one store
-// instruction.  The uniform flavours read alpha from a one-element device
-// operand, as the Pallas kernel reads alpha_ref, so alpha never travels
-// through the host.  The codebook residual reuses the interval endpoint
-// the rounding chose, so it is exact.  Built with -fmad=false and IEEE
-// division, the uniform arithmetic rounds exactly as the plain PyTorch
-// version's separate ops do: floor(u) flips at integers, so u must come
-// out bit for bit.
+// address.  With RESID the residual, with CODES the four codes, go out as
+// one 16-byte store a lane before the words are packed (the codes tile is
+// a fresh (rows, 128) tensor, so that store is always aligned).  Elements
+// 32q .. 32q+31 lie on lanes 8q .. 8q+7, so word q*BITS + j gathers lane
+// t's bit-j nibble at bit 4t: a multiply turns the four byte-wide codes'
+// bit j into a nibble, three xor-shuffles OR the group's eight nibbles,
+// and lane t < BITS of the group stores word j = t, so a row's words go
+// out in one store instruction.  The uniform flavours read alpha from a
+// one-element device operand, as the Pallas kernel reads alpha_ref, so
+// alpha never travels through the host.  The codebook residual reuses the
+// interval endpoint the rounding chose, so it is exact.  Built with
+// -fmad=false and IEEE division, the uniform arithmetic rounds exactly as
+// the plain PyTorch version's separate ops do: floor(u) flips at integers,
+// so u must come out bit for bit.
 //
-// serial_kernel is the body this design replaced (one thread per element,
-// the codebook filled into shared memory before the first load, lane 0
-// storing each group's words one by one), kept as the yardstick the new
-// body is timed and held against bit for bit on the card; no entry point
-// of the path launches it.
+// serial_kernel is the body this design replaced for K2, K3, K6 and K7
+// (one thread per element, the codebook filled into shared memory before
+// the first load, lane 0 storing each group's words one by one), kept as
+// the yardstick the new body is timed and held against bit for bit on the
+// card; no entry point of the path launches it.
 #include "select.cuh"
 
 namespace {
@@ -74,6 +82,10 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;  // rows per block
 constexpr int REG_BITS = 4;          // widths whose codebook sits in registers
 
+// What an encode writes beside the words: nothing (K6, K7), the residual
+// (K2, K3) or the codes (K16, K17).
+enum class Out { WORDS, RESID, CODES };
+
 // Bit j of four byte-wide codes (element e's in byte e) as a nibble,
 // element e in bit e: the multiply moves byte e's bit to bit 24 + e, and
 // no other product reaches bits 24..31.
@@ -81,11 +93,12 @@ __device__ __forceinline__ unsigned nibble(unsigned codes, int j) {
   return (((codes >> j) & 0x01010101u) * 0x01020408u) >> 24;
 }
 
-template <bool UNIFORM, bool RESID, int BITS>
+template <bool UNIFORM, Out OUT, int BITS>
 __global__ void __launch_bounds__(THREADS)
 encode_kernel(const float* __restrict__ c, long long m, const float* __restrict__ rand,
               const float* __restrict__ meta, int s, long long n, long long rows,
-              int* __restrict__ words, float* __restrict__ resid) {
+              int* __restrict__ words, float* __restrict__ resid, int* __restrict__ codes) {
+  constexpr bool RESID = OUT == Out::RESID;
   constexpr int S = (1 << BITS) - 1;
   constexpr int WC = 4 * BITS;  // words per row
   constexpr bool SHARED = !UNIFORM && BITS > REG_BITS;
@@ -134,7 +147,8 @@ encode_kernel(const float* __restrict__ c, long long m, const float* __restrict_
     __syncthreads();
   }
   if (row >= rows) return;  // whole warps leave
-  unsigned codes = 0;  // byte e: the code of element 4 lane + e
+  unsigned packed = 0;  // byte e: the code of element 4 lane + e
+  int k[4];
   float r[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -154,7 +168,8 @@ encode_kernel(const float* __restrict__ c, long long m, const float* __restrict_
       value = pick.value;
     }
     r[e] = x[e] - value;
-    codes |= (unsigned)code << (8 * e);
+    k[e] = code;
+    packed |= (unsigned)code << (8 * e);
   }
   if constexpr (RESID) {
     float* dst = resid + base + 4 * lane;
@@ -166,6 +181,9 @@ encode_kernel(const float* __restrict__ c, long long m, const float* __restrict_
         if (e < vm) dst[e] = r[e];
     }
   }
+  if constexpr (OUT == Out::CODES) {
+    reinterpret_cast<int4*>(codes + base)[lane] = make_int4(k[0], k[1], k[2], k[3]);
+  }
   // word (lane / 8) * BITS + j is bit j of the codes of lanes 8 (lane / 8)
   // .. + 7, lane t's nibble at bit 4t: OR the group's 8 nibbles by
   // shuffles; lane t < BITS of the group stores word j = t
@@ -173,7 +191,7 @@ encode_kernel(const float* __restrict__ c, long long m, const float* __restrict_
   unsigned mine = 0;
 #pragma unroll
   for (int j = 0; j < BITS; ++j) {
-    unsigned w = nibble(codes, j) << (4 * t);
+    unsigned w = nibble(packed, j) << (4 * t);
     w |= __shfl_xor_sync(FULL_MASK, w, 1);
     w |= __shfl_xor_sync(FULL_MASK, w, 2);
     w |= __shfl_xor_sync(FULL_MASK, w, 4);
@@ -182,21 +200,23 @@ encode_kernel(const float* __restrict__ c, long long m, const float* __restrict_
   if (t < BITS) words[row * WC + (lane >> 3) * BITS + t] = (int)mine;
 }
 
-template <bool UNIFORM, bool RESID, int BITS>
+template <bool UNIFORM, Out OUT, int BITS>
 int launch_bits(const float* c, long long m, const float* rand, const float* meta, long long n,
-                long long rows, int* words, float* resid, void* stream) {
+                long long rows, int* words, float* resid, int* codes, void* stream) {
   const long long blocks = (rows + WARPS - 1) / WARPS;
-  encode_kernel<UNIFORM, RESID, BITS><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      c, m, rand, meta, (1 << BITS) - 1, n, rows, words, resid);
+  encode_kernel<UNIFORM, OUT, BITS><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      c, m, rand, meta, (1 << BITS) - 1, n, rows, words, resid, codes);
   return (int)cudaGetLastError();
 }
 
-template <bool UNIFORM, bool RESID>
+template <bool UNIFORM, Out OUT>
 int launch(const float* c, long long m, const float* rand, const float* meta, int bits,
-           long long n, long long rows, int* words, float* resid, void* stream) {
+           long long n, long long rows, int* words, float* resid, int* codes, void* stream) {
   switch (bits) {
-#define REPRO_ENCODE_BITS(B) \
-  case B: return launch_bits<UNIFORM, RESID, B>(c, m, rand, meta, n, rows, words, resid, stream);
+#define REPRO_ENCODE_BITS(B)                                                              \
+  case B:                                                                                 \
+    return launch_bits<UNIFORM, OUT, B>(c, m, rand, meta, n, rows, words, resid, codes, \
+                                        stream);
     REPRO_ENCODE_BITS(1)
     REPRO_ENCODE_BITS(2)
     REPRO_ENCODE_BITS(3)
@@ -257,33 +277,53 @@ extern "C" {
 // rand: (rows, 128) float32, 16-byte aligned; m, n <= rows * 128;
 // 1 <= bits <= 8;
 // levels: (2^bits,) float32; alpha: (1,) float32; words: (rows, 4*bits)
-// int32; resid: m float32.
+// int32; resid: m float32; codes: (rows, 128) int32, 16-byte aligned.
 
 // K2
 int repro_codebook_encode_pack_resid(const float* c, long long m, const float* rand,
                                      const float* levels, int bits, long long n, long long rows,
                                      int* words, float* resid, void* stream) {
-  return launch<false, true>(c, m, rand, levels, bits, n, rows, words, resid, stream);
+  return launch<false, Out::RESID>(c, m, rand, levels, bits, n, rows, words, resid, nullptr,
+                                   stream);
 }
 
 // K3
 int repro_uniform_encode_pack_resid(const float* c, long long m, const float* rand,
                                     const float* alpha, int bits, long long n, long long rows,
                                     int* words, float* resid, void* stream) {
-  return launch<true, true>(c, m, rand, alpha, bits, n, rows, words, resid, stream);
+  return launch<true, Out::RESID>(c, m, rand, alpha, bits, n, rows, words, resid, nullptr,
+                                  stream);
 }
 
 // K6
 int repro_codebook_encode_pack(const float* c, long long m, const float* rand,
                                const float* levels, int bits, long long n, long long rows,
                                int* words, void* stream) {
-  return launch<false, false>(c, m, rand, levels, bits, n, rows, words, nullptr, stream);
+  return launch<false, Out::WORDS>(c, m, rand, levels, bits, n, rows, words, nullptr, nullptr,
+                                   stream);
 }
 
 // K7
 int repro_uniform_encode_pack(const float* c, long long m, const float* rand, const float* alpha,
                               int bits, long long n, long long rows, int* words, void* stream) {
-  return launch<true, false>(c, m, rand, alpha, bits, n, rows, words, nullptr, stream);
+  return launch<true, Out::WORDS>(c, m, rand, alpha, bits, n, rows, words, nullptr, nullptr,
+                                  stream);
+}
+
+// K16
+int repro_uniform_encode_pack_codes(const float* c, long long m, const float* rand,
+                                    const float* alpha, int bits, long long n, long long rows,
+                                    int* codes, int* words, void* stream) {
+  return launch<true, Out::CODES>(c, m, rand, alpha, bits, n, rows, words, nullptr, codes,
+                                  stream);
+}
+
+// K17
+int repro_codebook_encode_pack_codes(const float* c, long long m, const float* rand,
+                                     const float* levels, int bits, long long n, long long rows,
+                                     int* codes, int* words, void* stream) {
+  return launch<false, Out::CODES>(c, m, rand, levels, bits, n, rows, words, nullptr, codes,
+                                   stream);
 }
 
 // The replaced one-thread-per-element body on (rows, 128) c and rand;

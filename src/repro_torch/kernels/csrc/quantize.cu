@@ -1,21 +1,19 @@
-// Per-tensor stochastic encode [-> bit-pack] and decode, uniform or codebook.
+// Per-tensor stochastic encode and decode, uniform or codebook.
 //
-// Two templates, six TPU kernels of src/repro/kernels/quantize.py:
-//   encode_kernel<UNIFORM=true,  PACK=false>  uniform_encode_2d        (K12)
-//   encode_kernel<UNIFORM=false, PACK=false>  codebook_encode_2d       (K14)
-//   encode_kernel<UNIFORM=true,  PACK=true>   uniform_encode_pack_2d   (K16)
-//   encode_kernel<UNIFORM=false, PACK=true>   codebook_encode_pack_2d  (K17)
-//   decode_kernel<UNIFORM=true>               uniform_decode_2d        (K13)
-//   decode_kernel<UNIFORM=false>              codebook_decode_2d       (K15)
+// Two templates, four TPU kernels of src/repro/kernels/quantize.py:
+//   encode_kernel<UNIFORM=true>   uniform_encode_2d    (K12)
+//   encode_kernel<UNIFORM=false>  codebook_encode_2d   (K14)
+//   decode_kernel<UNIFORM=true>   uniform_decode_2d    (K13)
+//   decode_kernel<UNIFORM=false>  codebook_decode_2d   (K15)
+// The packed encodes of the same file, uniform_encode_pack_2d (K16) and
+// codebook_encode_pack_2d (K17), run on encode_fused.cu's body, which
+// writes their codes beside the wire words.
 //
 // Encode: for each element of a (rows, 128) tensor g with the explicit
 // uniform draw rand, select.cuh's uniform_select (alpha[0], s = 2^bits - 1)
-// or codebook_select (levels[0..s]) gives an int32 code in [0, s].  Without
-// PACK every code is written, the padding past element n included, as the
-// Pallas kernel does; with PACK codes past n are zero (quantize._mask_tail)
-// and are also packed into (rows, 4*bits) wire words: word q*bits + j of a
-// row holds bit j of the row's elements 32q .. 32q+31 (select.cuh's
-// ballot_pack, i.e. core.quantizers.pack_codes).
+// or codebook_select (levels[0..s]) gives an int32 code in [0, s].  Every
+// code is written, the padding past the tensor's last element included, as
+// the Pallas kernel does.
 //
 // Decode: (rows, 128) int32 codes ->
 //   uniform:  (float)code * ((2 alpha) / s) - alpha, two roundings
@@ -24,28 +22,27 @@
 //             as the Pallas kernel's one-hot product does.
 //
 // Bound: bytes.  Encode reads g and rand (8 B/element) and writes a 4-byte
-// code, plus bits/8 B of wire with PACK; decode reads a 4-byte code and
-// writes a 4-byte value.  A handful of float operations per element is far
-// below the card's rate.  The per-tensor path, though, encodes each of a
-// client's gradient leaves, most of them 1 to 36 rows: there one launch per
-// leaf costs the launch and nothing else.
+// code; decode reads a 4-byte code and writes a 4-byte value.  A handful of
+// float operations per element is far below the card's rate.  The
+// per-tensor path, though, encodes each of a client's gradient leaves, most
+// of them 1 to 36 rows: there one launch per leaf costs the launch and
+// nothing else.
 //
-// Design.  One thread per element, 256 threads a block, so a warp is one
-// 32-element wire group and each bit plane is one __ballot_sync written by
-// lane 0.  The encode takes a table of up to 64 segments, each a (rows_i,
-// 128) g and rand with its own alpha or levels and s, passed by value as a
-// __grid_constant__ kernel parameter (no host-to-device copy, no
-// concatenation of the tiles): segment i owns a run of whole blocks, a block
-// finds its segment by a binary search of the runs' ends, and its codes
-// go to rows row0_i .. row0_i + rows_i of one (sum rows_i, 128) output.  So
-// all of a client's leaves (K14 or K12 over 8 segments) are one launch, each
-// segment's codes bitwise those of a launch on that segment alone, and the
-// single-tensor launches are the one-segment case of the same template
-// (with PACK only that case).  The codebook (at most 256 floats) sits in
-// shared memory; alpha is a one-element device operand, as the Pallas
-// kernels read alpha_ref, so it never travels through the host.  The
-// arithmetic is select.cuh's, shared with encode_fused.cu, so K12/K16 give
-// K7's codes and K14/K17 K6's for the same inputs.
+// Design.  One thread per element, 256 threads a block.  The encode takes
+// a table of up to 64 segments, each a (rows_i, 128) g and rand with its
+// own alpha or levels and s, passed by value as a __grid_constant__ kernel
+// parameter (no host-to-device copy, no concatenation of the tiles):
+// segment i owns a run of whole blocks, a block finds its segment by a
+// binary search of the runs' ends, and its codes go to rows row0_i ..
+// row0_i + rows_i of one (sum rows_i, 128) output.  So all of a client's
+// leaves (K14 or K12 over 8 segments) are one launch, each segment's codes
+// bitwise those of a launch on that segment alone, and the single-tensor
+// launches are the one-segment case of the same template.  The codebook (at
+// most 256 floats) sits in shared memory; alpha is a one-element device
+// operand, as the Pallas kernels read alpha_ref, so it never travels
+// through the host.  The arithmetic is select.cuh's, shared with
+// encode_fused.cu, so K12 gives K7's and K16's codes and K14 K6's and
+// K17's for the same inputs.
 #include "select.cuh"
 
 namespace {
@@ -79,10 +76,9 @@ unsigned blocks_for(long long rows) {
   return (unsigned)((rows * LANES + THREADS - 1) / THREADS);
 }
 
-template <bool UNIFORM, bool PACK, int CAP>
+template <bool UNIFORM, int CAP>
 __global__ void __launch_bounds__(THREADS)
-encode_kernel(const __grid_constant__ Table<CAP> t, int bits, long long n,
-              int* __restrict__ codes, int* __restrict__ words) {
+encode_kernel(const __grid_constant__ Table<CAP> t, int* __restrict__ codes) {
   __shared__ float lv[256];
   int i = 0;  // the first segment whose run ends past this block
   if (CAP > 1) {
@@ -98,14 +94,10 @@ encode_kernel(const __grid_constant__ Table<CAP> t, int bits, long long n,
   }
   const int first = i == 0 ? 0 : t.block_end[i - 1];
   const long long idx = (long long)(blockIdx.x - first) * THREADS + threadIdx.x;
-  if (idx >= (long long)sg.rows * LANES) return;  // whole warps leave
-  int code = UNIFORM ? (int)uniform_select(sg.g[idx], sg.rand[idx], sg.meta[0], sg.s)
-                     : codebook_select(sg.g[idx], sg.rand[idx], lv, sg.s).code;
-  if (PACK) {
-    if (idx >= n) code = 0;
-    ballot_pack(code, bits, words + (idx >> 5) * bits);
-  }
-  codes[sg.row0 * LANES + idx] = code;
+  if (idx >= (long long)sg.rows * LANES) return;
+  codes[sg.row0 * LANES + idx] =
+      UNIFORM ? (int)uniform_select(sg.g[idx], sg.rand[idx], sg.meta[0], sg.s)
+              : codebook_select(sg.g[idx], sg.rand[idx], lv, sg.s).code;
 }
 
 template <bool UNIFORM>
@@ -131,9 +123,8 @@ decode_kernel(const int* __restrict__ codes, const float* __restrict__ meta, int
 
 // Fill t from count descriptors of five int64 each (g, rand, meta
 // pointers, s, rows) and launch; segment i's codes follow segment i-1's.
-template <bool UNIFORM, bool PACK, int CAP>
-int encode(const long long* desc, int count, int bits, long long n, int* codes, int* words,
-           void* stream) {
+template <bool UNIFORM, int CAP>
+int encode(const long long* desc, int count, int* codes, void* stream) {
   if (count < 1 || count > CAP) return (int)cudaErrorInvalidValue;
   Table<CAP> t{};
   long long row0 = 0, blocks = 0;
@@ -146,16 +137,15 @@ int encode(const long long* desc, int count, int bits, long long n, int* codes, 
     t.block_end[i] = (int)blocks;
   }
   t.count = count;
-  encode_kernel<UNIFORM, PACK, CAP><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      t, bits, n, codes, words);
+  encode_kernel<UNIFORM, CAP><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(t, codes);
   return (int)cudaGetLastError();
 }
 
-template <bool UNIFORM, bool PACK>
-int encode_one(const float* g, const float* rand, const float* meta, int s, int bits,
-               long long n, long long rows, int* codes, int* words, void* stream) {
+template <bool UNIFORM>
+int encode_one(const float* g, const float* rand, const float* meta, int s, long long rows,
+               int* codes, void* stream) {
   const long long desc[5] = {(long long)g, (long long)rand, (long long)meta, s, rows};
-  return encode<UNIFORM, PACK, 1>(desc, 1, bits, n, codes, words, stream);
+  return encode<UNIFORM, 1>(desc, 1, codes, stream);
 }
 
 template <bool UNIFORM>
@@ -170,47 +160,32 @@ int decode(const int* codes, const float* meta, int s, long long rows, float* ou
 
 extern "C" {
 
-// g, rand, out: (rows, 128) float32; codes: (rows, 128) int32; words:
-// (rows, 4*bits) int32; alpha: (1,) float32; levels: (s+1,) float32,
-// s + 1 <= 256.
+// g, rand, out: (rows, 128) float32; codes: (rows, 128) int32; alpha:
+// (1,) float32; levels: (s+1,) float32, s + 1 <= 256.
 
 // K12
 int repro_uniform_encode(const float* g, const float* rand, const float* alpha, int s,
                          long long rows, int* codes, void* stream) {
-  return encode_one<true, false>(g, rand, alpha, s, 0, 0, rows, codes, nullptr, stream);
+  return encode_one<true>(g, rand, alpha, s, rows, codes, stream);
 }
 
 // K14
 int repro_codebook_encode(const float* g, const float* rand, const float* levels, int s,
                           long long rows, int* codes, void* stream) {
-  return encode_one<false, false>(g, rand, levels, s, 0, 0, rows, codes, nullptr, stream);
+  return encode_one<false>(g, rand, levels, s, rows, codes, stream);
 }
 
 // K14 over 1 <= count <= 64 tiles in one launch.  desc: count * 5 int64,
 // per tile its g, rand and levels pointers, s and rows; codes: (sum rows,
 // 128) int32, tile i's rows after those of tiles 0 .. i-1.
 int repro_codebook_encode_segments(const long long* desc, int count, int* codes, void* stream) {
-  return encode<false, false, MAX_SEGMENTS>(desc, count, 0, 0, codes, nullptr, stream);
+  return encode<false, MAX_SEGMENTS>(desc, count, codes, stream);
 }
 
 // K12 over 1 <= count <= 64 tiles in one launch: desc as above, with each
 // tile's alpha (1,) pointer in place of its levels and s = 2^bits_i - 1.
 int repro_uniform_encode_segments(const long long* desc, int count, int* codes, void* stream) {
-  return encode<true, false, MAX_SEGMENTS>(desc, count, 0, 0, codes, nullptr, stream);
-}
-
-// K16
-int repro_uniform_encode_pack_codes(const float* g, const float* rand, const float* alpha,
-                                    int s, int bits, long long n, long long rows, int* codes,
-                                    int* words, void* stream) {
-  return encode_one<true, true>(g, rand, alpha, s, bits, n, rows, codes, words, stream);
-}
-
-// K17
-int repro_codebook_encode_pack_codes(const float* g, const float* rand, const float* levels,
-                                     int s, int bits, long long n, long long rows, int* codes,
-                                     int* words, void* stream) {
-  return encode_one<false, true>(g, rand, levels, s, bits, n, rows, codes, words, stream);
+  return encode<true, MAX_SEGMENTS>(desc, count, codes, stream);
 }
 
 // K13

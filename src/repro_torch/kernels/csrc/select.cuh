@@ -1,9 +1,10 @@
 // The shared stochastic-select bodies of the encode kernels (encode_fused.cu
-// K2, K3, K6, K7 and quantize.cu K12, K14, K16, K17): one source for the
+// K2, K3, K6, K7, K16, K17 and quantize.cu K12, K14): one source for the
 // arithmetic of src/repro/kernels/quantize.py's uniform_select and
 // codebook_select (with the codebook in shared memory or in registers), and
-// for _pack_block's bit planes, so that every kernel family writes the same
-// codes for the same inputs.
+// for _pack_block's bit planes (ballot_pack, used by encode_fused.cu's
+// serial body), so that every kernel family writes the same codes for the
+// same inputs.
 //
 // Both bodies must be compiled with -fmad=false and IEEE division: floor(u)
 // flips at integers and the rounding compares rand with a quotient, so each

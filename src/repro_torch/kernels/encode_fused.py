@@ -1,5 +1,5 @@
 """Fused encode-side kernels: EF-correct→stats (K1) and quantize→pack
-[→residual] (K2, K3, K6, K7).
+[→residual] (K2, K3, K6, K7), and the body K16 and K17 run on.
 
 The port of ``repro.kernels.encode_fused``.  ``ef_correct_stats_2d`` reads a
 gradient bucket and its EF residual once, writes ``c = g + e`` and the
@@ -9,13 +9,15 @@ four encode kernels round c stochastically onto the bucket's codebook
 (``codebook_*``) or onto the uniform grid over [−α, α] (``uniform_*``),
 pack the codes into the wire words and, in the ``*_resid_2d`` flavours,
 write the next EF residual ``c − dequant(code)`` in the same pass
-(``csrc/encode_fused.cu``).  The ``*_2d`` entry points take the JAX
-package's zero-padded (rows, 128) tile; :func:`encode_flat` launches the
-same kernel on the bucket as it lies (any alignment, shorter than the code
+(``csrc/encode_fused.cu``).  The same body, writing the codes beside the
+words, is ``kernels.quantize``'s ``uniform_encode_pack_2d`` (K16) and
+``codebook_encode_pack_2d`` (K17).  :func:`encode_2d` launches any of the
+six on the JAX package's zero-padded (rows, 128) tile; :func:`encode_flat`
+launches it on the bucket as it lies (any alignment, shorter than the code
 length), reading the elements past it as zero, so the card path needs no
 padded copy.  :func:`serial_2d` launches the one-thread-per-element body
-the kernel replaced, uncounted, for the card checks and timings alone.
-All take CUDA tensors only; their plain PyTorch versions are in
+K2, K3, K6 and K7 replaced, uncounted, for the card checks and timings
+alone.  All take CUDA tensors only; their plain PyTorch versions are in
 ``kernels.ref``.
 """
 from __future__ import annotations
@@ -95,78 +97,89 @@ def _check_2d(g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor, n: int, 
         raise ValueError(f"n={n} outside [1, {g2.numel()}]")
 
 
+# what an encode writes beside the words (``kernel.entry[2]``)
+WORDS, RESID, CODES = "words", "residual", "codes"
+
+
 def _launch(kernel, c: torch.Tensor, n: int, rows: int, rand: torch.Tensor, meta: torch.Tensor,
             bits: int):
     """One launch of ``kernel``'s body on checked operands: the first
     ``c.numel()`` elements of the (rows, 128) tile read from c, the rest as
-    zero.  Returns the (rows, 4·bits) words and, for the residual flavours,
-    the residual of c's elements."""
-    fn_name, _, resid = _ENTRY[kernel.__name__]
+    zero.  Returns the (rows, 4·bits) words, with the residual of c's
+    elements after them for the residual flavours, or the (rows, 128) codes
+    before them for the codes flavours."""
+    fn_name, _, out = kernel.entry
+    words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=c.device)
+    if out == RESID:
+        result = (words, torch.empty(c.numel(), dtype=torch.float32, device=c.device))
+    elif out == CODES:
+        result = (torch.empty((rows, LANES), dtype=torch.int32, device=c.device), words)
+    else:
+        result = (words,)
     fn = _build.bind("encode_fused", fn_name, [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * (3 if resid else 2))
-    words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=c.device)
-    out = [_build.ptr(words)]
-    if resid:
-        r = torch.empty(c.numel(), dtype=torch.float32, device=c.device)
-        out.append(_build.ptr(r))
+        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * (len(result) + 1))
     with torch.cuda.device(c.device):
         code = fn(_build.ptr(c), c.numel(), _build.ptr(rand), _build.ptr(meta), bits, n, rows,
-                  *out, _build.stream(c))
+                  *[_build.ptr(t) for t in result], _build.stream(c))
     _build.check(code, kernel.__name__)
     kernel.launches += 1
-    return (words, r) if resid else words
+    return words if out == WORDS else result
 
 
-def _launch_2d(kernel, g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor, n: int,
-               bits: int):
-    _check_2d(g2, rand, meta, n, bits, _ENTRY[kernel.__name__][1])
+def encode_2d(kernel, g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor, n: int,
+              bits: int):
+    """``kernel`` (K2, K3, K6, K7 here, K16, K17 in ``kernels.quantize``,
+    whose launch it counts) on the (rows, 128) tile g2 with code length n;
+    the residual, where the kernel writes one, comes back as a (rows, 128)
+    tile."""
+    _check_2d(g2, rand, meta, n, bits, kernel.entry[1])
     out = _launch(kernel, g2, n, g2.shape[0], rand, meta, bits)
-    return (out[0], out[1].reshape(g2.shape)) if isinstance(out, tuple) else out
+    return (out[0], out[1].reshape(g2.shape)) if kernel.entry[2] == RESID else out
 
 
 def codebook_encode_pack_resid_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
                                   n: int, bits: int):
     """K2: g, rand (rows, 128) fp32 CUDA, levels (s+1,) fp32 ->
     ((rows, 4·bits) int32 wire words, (rows, 128) fp32 residual)."""
-    return _launch_2d(codebook_encode_pack_resid_2d, g2, rand, levels, n, bits)
+    return encode_2d(codebook_encode_pack_resid_2d, g2, rand, levels, n, bits)
 
 
 def uniform_encode_pack_resid_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
                                  n: int, bits: int):
     """K3: g, rand (rows, 128) fp32 CUDA, alpha (1,) fp32 ->
     ((rows, 4·bits) int32 wire words, (rows, 128) fp32 residual)."""
-    return _launch_2d(uniform_encode_pack_resid_2d, g2, rand, alpha, n, bits)
+    return encode_2d(uniform_encode_pack_resid_2d, g2, rand, alpha, n, bits)
 
 
 def codebook_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor,
                             n: int, bits: int):
     """K6: K2's wire words alone."""
-    return _launch_2d(codebook_encode_pack_2d, g2, rand, levels, n, bits)
+    return encode_2d(codebook_encode_pack_2d, g2, rand, levels, n, bits)
 
 
 def uniform_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor,
                            n: int, bits: int):
     """K7: K3's wire words alone."""
-    return _launch_2d(uniform_encode_pack_2d, g2, rand, alpha, n, bits)
+    return encode_2d(uniform_encode_pack_2d, g2, rand, alpha, n, bits)
 
 
 def encode_flat(kernel, c: torch.Tensor, n: int, rand: torch.Tensor, meta: torch.Tensor,
                 bits: int):
-    """``kernel`` (one of the four encode wrappers above, whose launch it
-    counts) on the bucket as it lies: c contiguous fp32 CUDA, m = c.numel()
-    elements at any 4-byte alignment, code length n >= m (elements m .. n-1
-    read as zero, as the zero-padded tile has them), rand the 16-byte
-    aligned (ceil(n/128), 128) tile ``prng.uniform`` draws.  Returns the
-    (rows, 4·bits) words ``kernel`` writes on c zero-padded to that tile,
-    bit for bit, and for the residual flavours the (m,) residual of c."""
+    """``kernel`` (one of the six encode wrappers :func:`encode_2d` takes,
+    whose launch it counts) on the bucket as it lies: c contiguous fp32
+    CUDA, m = c.numel() elements at any 4-byte alignment, code length n >= m
+    (elements m .. n-1 read as zero, as the zero-padded tile has them), rand
+    the 16-byte aligned (ceil(n/128), 128) tile ``prng.uniform`` draws.
+    Returns what ``kernel`` returns on c zero-padded to that tile, bit for
+    bit, except that a residual is c's own (m,) residual."""
     check_flat("c", c)
     m = c.numel()
     if n < m:
         raise ValueError(f"code length n={n} below the bucket's {m} elements")
     rows = -(-n // LANES)
     _check_rand(rand, rows, c.device)
-    _check_meta(meta, bits, _ENTRY[kernel.__name__][1], c.device)
+    _check_meta(meta, bits, kernel.entry[1], c.device)
     return _launch(kernel, c, n, rows, rand, meta, bits)
 
 
@@ -190,14 +203,13 @@ def serial_2d(uniform: bool, resid: bool, g2: torch.Tensor, rand: torch.Tensor,
     return (words, r) if resid else words
 
 
-# wrapper name -> (C entry point, uniform, residual)
-_ENTRY = {
-    "codebook_encode_pack_resid_2d": ("repro_codebook_encode_pack_resid", False, True),
-    "uniform_encode_pack_resid_2d": ("repro_uniform_encode_pack_resid", True, True),
-    "codebook_encode_pack_2d": ("repro_codebook_encode_pack", False, False),
-    "uniform_encode_pack_2d": ("repro_uniform_encode_pack", True, False),
-}
-for _k in (codebook_encode_pack_resid_2d, uniform_encode_pack_resid_2d, codebook_encode_pack_2d,
-           uniform_encode_pack_2d):
+# each wrapper's C entry point, whether it is uniform, and what it writes
+# beside the words
+for _k, _entry in ((codebook_encode_pack_resid_2d, ("repro_codebook_encode_pack_resid", False,
+                                                    RESID)),
+                   (uniform_encode_pack_resid_2d, ("repro_uniform_encode_pack_resid", True, RESID)),
+                   (codebook_encode_pack_2d, ("repro_codebook_encode_pack", False, WORDS)),
+                   (uniform_encode_pack_2d, ("repro_uniform_encode_pack", True, WORDS))):
     _k.launches = 0
-del _k
+    _k.entry = _entry
+del _k, _entry

@@ -6,9 +6,10 @@ stochastic-rounding uniforms on the (rows, 128) tile of a flat bucket
 JAX package) and sends the operands to the kernel when they lie on the
 card or to the plain version in ``kernels.ref`` when they lie on the CPU.
 The plain versions take the bucket zero-padded to that tile.  On the card
-the statistics kernels K1 and K10 and the fused encodes K2, K3, K6 and K7
-take the bucket, and the decodes K4, K5, K8 and K9 the stacked wire, as it
-lies; the per-tensor kernels K12–K17 take the padded tile there too.
+the statistics kernels K1 and K10, the fused encodes K2, K3, K6 and K7 and
+the packed per-tensor encodes K16 and K17 take the bucket, and the decodes
+K4, K5, K8 and K9 the stacked wire, as it lies; the per-tensor kernels
+K12–K15 take the padded tile there too.
 There is no switch between the two: the device decides, and a card tensor
 either launches its kernel or raises.
 """
@@ -103,24 +104,37 @@ def _draw(g: torch.Tensor, key: torch.Tensor):
     return g2, n, prng.uniform(key, g2.shape, device=g2.device)
 
 
-def _encode(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int, key: torch.Tensor,
-            n: int | None = None):
+def _encode_tile(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int,
+                 key: torch.Tensor, n: int | None):
     """Encode flat ``g`` at code length n (g's length by default; elements
     past g count as zero) with ``rand`` drawn on the (ceil(n/128), 128)
     tile: the kernel on g as it lies (``encode_fused.encode_flat``), or the
-    plain version on g zero-padded to the tile.  Returns the
+    plain version on g zero-padded to the tile.  Returns their outputs on
+    the tile, and n."""
+    n = g.numel() if n is None else n
+    rand = prng.uniform(key, (-(-n // LANES), LANES), device=g.device)
+    if _on_card(g):
+        return _e.encode_flat(kernel, _f32(g.reshape(-1)), n, rand, meta, bits), n
+    return plain(_to_2d(g, n=n)[0], rand, meta, n, bits), n
+
+
+def _encode(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int, key: torch.Tensor,
+            n: int | None = None):
+    """:func:`_encode_tile` for K2, K3, K6 and K7.  Returns the
     ``packed_size(n, bits)`` words, and g's residual where the kernel
     writes one."""
-    card, m = _on_card(g), g.numel()
-    n = m if n is None else n
-    rand = prng.uniform(key, (-(-n // LANES), LANES), device=g.device)
-    if card:
-        out = _e.encode_flat(kernel, _f32(g.reshape(-1)), n, rand, meta, bits)
-    else:
-        out = plain(_to_2d(g, n=n)[0], rand, meta, n, bits)
+    out, n = _encode_tile(kernel, plain, g, meta, bits, key, n)
     words, resid = out if isinstance(out, tuple) else (out, None)
     words = words.reshape(-1)[:packed_size(n, bits)]
-    return words if resid is None else (words, resid.reshape(-1)[:m])
+    return words if resid is None else (words, resid.reshape(-1)[:g.numel()])
+
+
+def _encode_packed(kernel, plain, g: torch.Tensor, meta: torch.Tensor, bits: int,
+                   key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_encode_tile` for K16 and K17 at g's own length: the
+    ``packed_size(n, bits)`` words and the flat uint8 codes."""
+    (codes, words), n = _encode_tile(kernel, plain, g, meta, bits, key, None)
+    return words.reshape(-1)[:packed_size(n, bits)], codes.reshape(-1)[:n].to(torch.uint8)
 
 
 def codebook_encode_pack_residual(g: torch.Tensor, levels: torch.Tensor, bits: int,
@@ -183,20 +197,16 @@ def uniform_encode_packed(g: torch.Tensor, alpha: torch.Tensor, bits: int,
     """Truncate + uniform stochastic encode + bit-pack (K16).  Returns
     ``(words, codes)``: the ``packed_size(n, bits)`` int32 wire words (the
     bits of ``pack_codes`` of the codes) and the flat uint8 codes."""
-    g2, n, rand = _draw(g, key)
-    codes, words = (_q.uniform_encode_pack_2d if _on_card(g2) else ref.uniform_encode_pack_codes)(
-        g2, rand, _alpha(alpha), n, bits)
-    return words.reshape(-1)[:packed_size(n, bits)], codes.reshape(-1)[:n].to(torch.uint8)
+    return _encode_packed(_q.uniform_encode_pack_2d, ref.uniform_encode_pack_codes, g,
+                          _alpha(alpha), bits, key)
 
 
 def codebook_encode_packed(g: torch.Tensor, levels: torch.Tensor, bits: int,
                            key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Codebook stochastic encode + bit-pack onto ``levels`` (K17); returns
     ``(words, codes)`` as :func:`uniform_encode_packed`."""
-    g2, n, rand = _draw(g, key)
-    codes, words = (_q.codebook_encode_pack_2d if _on_card(g2)
-                    else ref.codebook_encode_pack_codes)(g2, rand, _f32(levels), n, bits)
-    return words.reshape(-1)[:packed_size(n, bits)], codes.reshape(-1)[:n].to(torch.uint8)
+    return _encode_packed(_q.codebook_encode_pack_2d, ref.codebook_encode_pack_codes, g,
+                          _f32(levels), bits, key)
 
 
 def codebook_encode(g: torch.Tensor, levels: torch.Tensor, key: torch.Tensor) -> torch.Tensor:

@@ -5,12 +5,14 @@ a one-element device tensor) and codebook (``codebook_*``, the (s+1,)
 levels) flavours of one encode and one decode template
 (``csrc/quantize.cu``).  The encodes round a (rows, 128) fp32 tensor
 stochastically with an explicit (rows, 128) uniform draw and write int32
-codes; the ``*_encode_pack_2d`` flavours also zero the codes past the true
-element count n and pack them into the (rows, 4·bits) wire words of
-``core.quantizers.pack_codes``.  The decodes map int32 codes back to
-``code·(2α/s) − α`` or ``levels[code]``.  All take CUDA tensors only;
-their plain PyTorch versions are in ``kernels.ref`` and the per-tensor
-wrappers in ``kernels.ops``.
+codes; the ``*_encode_pack_2d`` flavours (K16, K17) also zero the codes
+past the true element count n and pack them into the (rows, 4·bits) wire
+words of ``core.quantizers.pack_codes``: they run on the fused encode body
+of ``csrc/encode_fused.cu`` (``encode_fused.encode_2d``; on a flat tensor
+as it lies, ``encode_fused.encode_flat``).  The decodes map int32 codes
+back to ``code·(2α/s) − α`` or ``levels[code]``.  All take CUDA tensors
+only; their plain PyTorch versions are in ``kernels.ref`` and the
+per-tensor wrappers in ``kernels.ops``.
 
 Every kernel here is bound by its bytes, except where the per-tensor path
 gives it a leaf of a few rows: there a launch costs the launch alone.  So
@@ -31,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import encode_fused as _e
 from .stats import LANES, check_2d
 
 MAX_SEGMENTS = 64        # tiles per launch of the segmented encode (csrc/quantize.cu)
@@ -55,32 +58,21 @@ def _bits(bits: int) -> int:
 
 
 def _encode(kernel, fn_name: str, g2: torch.Tensor, rand: torch.Tensor, meta: torch.Tensor,
-            s: int, n: int | None = None, bits: int = 0):
+            s: int):
     check_2d("g", g2)
     check_2d("rand", rand)
     if rand.shape != g2.shape or rand.device != g2.device:
         raise ValueError("rand must match g in shape and device")
     rows = g2.shape[0]
     codes = torch.empty((rows, LANES), dtype=torch.int32, device=g2.device)
-    if n is None:
-        args = [ctypes.c_longlong(rows), _build.ptr(codes)]
-        argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-    else:
-        if not 1 <= n <= g2.numel():
-            raise ValueError(f"n={n} outside [1, {g2.numel()}]")
-        words = torch.empty((rows, (LANES // 32) * bits), dtype=torch.int32, device=g2.device)
-        args = [ctypes.c_int(bits), ctypes.c_longlong(n), ctypes.c_longlong(rows),
-                _build.ptr(codes), _build.ptr(words)]
-        argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                    ctypes.c_void_p]
-    fn = _build.bind("quantize", fn_name,
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] + argtypes + [ctypes.c_void_p])
+    fn = _build.bind("quantize", fn_name, [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(g2.device):
-        code = fn(_build.ptr(g2), _build.ptr(rand), _build.ptr(meta), s, *args,
+        code = fn(_build.ptr(g2), _build.ptr(rand), _build.ptr(meta), s, rows, _build.ptr(codes),
                   _build.stream(g2))
     _build.check(code, kernel.__name__)
     kernel.launches += 1
-    return codes if n is None else (codes, words)
+    return codes
 
 
 def _decode(kernel, fn_name: str, codes2: torch.Tensor, meta: torch.Tensor, s: int):
@@ -170,19 +162,15 @@ def uniform_encode_segments(g2s: list, rands: list, alphas: list, bits: list) ->
 def uniform_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, alpha: torch.Tensor, n: int,
                            bits: int):
     """K16: K12's codes, zeroed past n, and their (rows, 4·bits) int32 wire
-    words."""
-    _meta("alpha", alpha, g2, (1,))
-    return _encode(uniform_encode_pack_2d, "repro_uniform_encode_pack_codes", g2, rand, alpha,
-                   _bits(bits), n, bits)
+    words: ((rows, 128) int32 codes, words); rand 16-byte aligned."""
+    return _e.encode_2d(uniform_encode_pack_2d, g2, rand, alpha, n, bits)
 
 
 def codebook_encode_pack_2d(g2: torch.Tensor, rand: torch.Tensor, levels: torch.Tensor, n: int,
                             bits: int):
     """K17: K14's codes, zeroed past n, and their (rows, 4·bits) int32 wire
     words; levels must have 2^bits entries."""
-    s = _meta("levels", levels, g2, (_bits(bits) + 1,))
-    return _encode(codebook_encode_pack_2d, "repro_codebook_encode_pack_codes", g2, rand, levels,
-                   s, n, bits)
+    return _e.encode_2d(codebook_encode_pack_2d, g2, rand, levels, n, bits)
 
 
 def uniform_decode_2d(codes2: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
@@ -203,3 +191,6 @@ for _k in (uniform_encode_2d, codebook_encode_2d, uniform_encode_pack_2d, codebo
            uniform_decode_2d, codebook_decode_2d):
     _k.launches = 0
 del _k
+# K16 and K17: encode_fused.cu's entry points, and the codes beside the words
+uniform_encode_pack_2d.entry = ("repro_uniform_encode_pack_codes", True, _e.CODES)
+codebook_encode_pack_2d.entry = ("repro_codebook_encode_pack_codes", False, _e.CODES)

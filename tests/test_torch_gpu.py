@@ -19,7 +19,9 @@ and to the one-tile kernel on each tile; the decode body bitwise the
 serial body it replaced, and equal from the padded words and from the
 stacked wire as it lies; the encode body (K2, K3, K6, K7) bitwise the
 serial body it replaced, and equal from the flat entry on the bucket as it
-lies (any 4-byte alignment, shorter than the code length).
+lies (any 4-byte alignment, shorter than the code length); K16 and K17 on
+the same body, their codes K12's and K14's zeroed past n, the same from
+the flat entry and through ``kernels.ops`` on the unpadded tensor.
 """
 import math
 
@@ -29,7 +31,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.core.quantizers import pack_codes  # noqa: E402
+from repro_torch.core.quantizers import pack_codes, packed_size  # noqa: E402
 from repro_torch.kernels import (decode, encode_fused, ops, orthogonalize, quantize,  # noqa: E402
                                  ref, stats)
 
@@ -470,14 +472,63 @@ def test_quantize_kernels_bitwise(cuda, bits, n):
     assert torch.equal(quantize.codebook_decode_2d(cc, lv), ref.codebook_decode(cc, lv))
 
 
+# K16 and K17 on the encode body at every width (the codebook in registers
+# up to 4 bits, in shared memory above): n under one row, off a multiple of
+# 32, off a multiple of 128
+PACK_N = [100, 1000, RAGGED_N]
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_packed_quantize_body_bitwise(cuda, bits):
+    """K16 and K17 on the padded tile: bitwise their plain versions, their
+    codes K12's and K14's zeroed past n, their words ``pack_codes`` of
+    those codes; the same from the flat entry on the tensor as it lies,
+    16-byte aligned or 4 bytes off, and through ``kernels.ops`` on the
+    unpadded tensor, also against the plain version on the CPU."""
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    levels, alpha = _encode_meta(gen, bits, cuda)
+    for n in PACK_N:
+        g = _heavy(gen, n, cuda)
+        g2 = ops._to_2d(g)[0]
+        key = prng.key(n + bits)
+        rand = prng.uniform(key, g2.shape, device=cuda)
+        buf = torch.empty(n + 1, device=cuda)
+        buf[1:] = g
+        for kernel, plain, meta, wrap, unpacked in (
+                (quantize.uniform_encode_pack_2d, ref.uniform_encode_pack_codes, alpha,
+                 ops.uniform_encode_packed, lambda: quantize.uniform_encode_2d(g2, rand, alpha,
+                                                                                bits)),
+                (quantize.codebook_encode_pack_2d, ref.codebook_encode_pack_codes, levels,
+                 ops.codebook_encode_packed, lambda: quantize.codebook_encode_2d(g2, rand, levels))):
+            kernels.reset_launch_counts()
+            codes, words = kernel(g2, rand, meta, n, bits)
+            want_codes, want_words = plain(g2, rand, meta, n, bits)
+            assert torch.equal(codes, want_codes) and torch.equal(words, want_words), (bits, n)
+            flat = unpacked().reshape(-1)[:n]
+            assert torch.equal(codes.reshape(-1)[:n], flat) and not codes.reshape(-1)[n:].any()
+            wire = words.reshape(-1)[:packed_size(n, bits)]
+            assert torch.equal(wire, pack_codes(flat, bits))
+            for x in (g, buf[1:]):
+                got = encode_fused.encode_flat(kernel, x, n, rand, meta, bits)
+                assert torch.equal(got[0], codes) and torch.equal(got[1], words), x.data_ptr() % 16
+            card = wrap(g, meta, bits, key)
+            assert torch.equal(card[0], wire) and torch.equal(card[1], flat.to(torch.uint8))
+            cpu = wrap(g.cpu(), meta.cpu(), bits, key)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+            assert kernels.launch_counts()[kernels.kernel_name(kernel)] == 4
+
+
 def test_quantize_kernels_reject_bad_operands(cuda):
     g2, rand = torch.zeros((4, 128), device=cuda), torch.zeros((4, 128), device=cuda)
     a, lv = torch.ones(1, device=cuda), torch.linspace(-1, 1, 8, device=cuda)
+    shifted = torch.zeros(4 * 128 + 1, device=cuda)[1:].view(4, 128)   # 4 bytes off
     for call in (lambda: quantize.uniform_encode_2d(g2, rand, torch.ones(2, device=cuda), 3),
                  lambda: quantize.uniform_encode_2d(g2, rand[:2], a, 3),
                  lambda: quantize.codebook_encode_2d(g2, rand, torch.ones(257, device=cuda)),
                  lambda: quantize.codebook_encode_pack_2d(g2, rand, lv, 10, 2),
+                 lambda: quantize.codebook_encode_pack_2d(g2, shifted, lv, 10, 3),
                  lambda: quantize.uniform_encode_pack_2d(g2, rand, a, 513, 3),
+                 lambda: quantize.uniform_encode_pack_2d(g2, rand, a, 100, 9),
                  lambda: quantize.uniform_decode_2d(g2, a, 3),
                  lambda: quantize.codebook_decode_2d(g2.to(torch.int32), lv.double())):
         with pytest.raises(ValueError):
