@@ -39,7 +39,10 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    the serial body and equal from the flat entry on the bucket as it lies
    (contiguous, 4 bytes off a 16-byte boundary, shorter than the code
    length), at every case above and on random codebooks at bits 1, 2, 3, 4
-   and 8; the encode body's build must report no spill stores;
+   and 8; K6, K7 and K4, K5, K8, K9 at the per-leaf codec's rows (2, 4, 18
+   and 576 elements over 1, 2, 4 and 8 peers, sort-based plans), also
+   through ``core.codecs`` card against CPU; the encode body's build must
+   report no spill stores;
 4. main path: the paper's 8-client smallnet training through
    ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
@@ -55,9 +58,18 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    twice and held bit for bit, to 240 launches of K14 or K12 (one
    segmented launch per client a round) and none of any other kernel, and
    to the JAX package's final loss within ± 0.05.
-   Then one synced step of the mixed plan (tnqsgd 3 bits, powersgd rank 4,
-   tnqsgd 2 bits over three buckets) on the card, held against the same
-   step on the CPU;
+   Then the uncompressed dsgd run (the JAX package's window) and the
+   per-leaf codec (``bucket_mb=0``): faithful tnqsgd (30 steps) and
+   two_phase (8,) and hierarchical (2, 4) tnqsgd (3 steps) held to the JAX
+   package's per-leaf runs, faithful tqsgd (15 steps, convergence), each
+   with its launches per step.  Then one synced step of the mixed plan (tnqsgd 3
+   bits, powersgd rank 4, tnqsgd 2 bits over three buckets), one step of
+   the fp16 small-bucket tier on the same buckets (fp16_threshold 5,000),
+   one adaptive step (3 steps of telemetry, the bits water-filled on
+   the card and from the same telemetry on the CPU, equal, then a step
+   with them) and one per-leaf sync in each of the four per-leaf runs'
+   modes, each on the card held against the same step on the CPU with
+   the card's plans replayed;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -66,7 +78,8 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    bucket and two_phase chunk (beside the serial body; the encodes also
    through the flat entry on stacked rows), K12/K14 at each of its leaf
    sizes, K16/K17 at smallnet's largest leaf (200,704; also through the
-   flat entry), the segmented K14 and K12 over a client's eight leaves
+   flat entry), K2-K9 also at the per-leaf two_phase chunk (25,088), the
+   segmented K14 and K12 over a client's eight leaves
    beside their eight launches, the phase-2
    kernels at a 4 MB bucket's chunk shape, one synced step's wall time per
    sync mode and method, and one per-tensor round's compression phase by
@@ -399,6 +412,58 @@ def main() -> int:
     torch.cuda.synchronize()
     print("[parity] K2, K3, K6, K7 on random codebooks and alphas, bits 1, 2, 3, 4, 8 x n 1000, "
           f"{RAGGED_N}: bitwise the plain versions and the serial body, and from the flat entry")
+
+    # the per-leaf codec's shapes (bucket_mb=0): smallnet's leaves split
+    # into per-peer rows of 2 (the 10- and 16-element leaves over 8 peers),
+    # 4 (the 32-element leaf; a (2, 4) pod's 16-element leaf), 18 (the
+    # 144-element leaf) and 576 (the 4,608-element leaf), over 1, 2, 4 and
+    # 8 peers, each row planned by the sort-based fit: K6/K7 on the padded
+    # tile and from the flat entry, K4, K5, K8, K9 on the padded words and
+    # from the wire, bitwise the plain versions; and through kernels.ops as
+    # the per-leaf sync calls them (core.codecs.encode_pack, decode_reduce,
+    # decode_rows), card against CPU on the same rows and keys
+    from repro_torch.core import codecs as kcodecs
+    from repro_torch.core.compressors import plan as sort_plan
+
+    leaf_cfgs = {m: CompressorConfig(method=m, bits=3) for m in ("tnqsgd", "tqsgd")}
+    for n in (2, 4, 18, 576):
+        for peers in (1, 2, 4, 8):
+            rows_g = [heavy(n, 1e-3) for _ in range(peers)]
+            for method, lcfg in leaf_cfgs.items():
+                uniform = method == "tqsgd"
+                metas = [sort_plan(lcfg, x) for x in rows_g]
+                keys = [prng.fold_in(prng.key(31 * n + peers), p) for p in range(peers)]
+                enc = kenc.uniform_encode_pack_2d if uniform else kenc.codebook_encode_pack_2d
+                at = f"per-leaf row n={n} peers={peers} {method}"
+                words = []
+                for x, m_, k in zip(rows_g, metas, keys):
+                    meta = m_.alpha.reshape(1).contiguous() if uniform else m_.levels
+                    x2 = to2d(x)
+                    words.append(encode_parity(enc, x2, prng.uniform(k, x2.shape, device=dev),
+                                               meta, n, 3, at))
+                words3 = torch.stack(words).contiguous()
+                meta2 = (torch.stack([m_.alpha for m_ in metas]) if uniform
+                         else torch.stack([m_.levels for m_ in metas]).contiguous())
+                for kernel in ((kdec.uniform_decode_reduce_3d, kdec.uniform_decode_rows_3d)
+                               if uniform else (kdec.codebook_decode_reduce_3d,
+                                                kdec.codebook_decode_rows_3d)):
+                    decode_parity(kernel, words3, meta2, n, 3, at)
+                wire = torch.stack([kcodecs.encode_pack(lcfg, x, m_, k)
+                                    for x, m_, k in zip(rows_g, metas, keys)])
+                wire_cpu = torch.stack([kcodecs.encode_pack(
+                    lcfg, x.cpu(), m_._replace(levels=m_.levels.cpu(), alpha=m_.alpha.cpu()), k)
+                    for x, m_, k in zip(rows_g, metas, keys)])
+                check(torch.equal(wire.cpu(), wire_cpu), f"encode_pack card vs CPU at {at}")
+                lv = torch.stack([m_.levels for m_ in metas])
+                for op in (kcodecs.decode_reduce, kcodecs.decode_rows):
+                    check(torch.equal(op(lcfg, wire, lv, n).cpu(),
+                                      op(lcfg, wire_cpu, lv.cpu(), n)),
+                          f"{op.__name__} card vs CPU at {at}")
+    torch.cuda.synchronize()
+    print("[parity] per-leaf rows of 2, 4, 18, 576 elements over 1, 2, 4, 8 peers (tnqsgd, "
+          "tqsgd, sort-based plans): K6, K7 and K4, K5, K8, K9 bitwise the plain versions, the "
+          "serial bodies, the flat encode entry and the wire entry; core.codecs.encode_pack, "
+          "decode_reduce and decode_rows card against CPU bitwise")
 
     # K1/K10 on inputs that fill every bin (1% exact zeros, 1% subnormals,
     # under- and overflow, the rest at least 0.1% off each bin edge), all
@@ -746,11 +811,40 @@ def main() -> int:
         "hierarchical_powersgd": (dict(sync="hierarchical", dp_sizes=(2, 4), method="powersgd",
                                        error_feedback=True), (0.136193, 0.05),
                                   expected_launches({K1: 8, K11: 10, K10: 2}, 0, 0)),
+        # the uncompressed mean: the JAX package's dsgd window, no kernel
+        "dsgd": (dict(sync="dsgd"), (0.0000, 0.02), expected_launches({}, 0, 0)),
+        # the per-leaf codec (bucket_mb=0): each of smallnet's 8 leaves on
+        # its own, every tensor planned by the sort-based fit (no statistics
+        # kernel).  Per step: faithful encodes 8 peers' leaves (K6|K7 64)
+        # and decodes each leaf (K4|K5 8); two_phase (8,) encodes 8 chunk
+        # rows a peer and leaf (64) and the 8 mean chunks (8), decodes 8
+        # chunks (K4 8) and the rows once (K8 1), each leaf: K6 576, K4 64,
+        # K8 8; hierarchical (2, 4) does that in two pods of 4 (K6 2·20, K4
+        # 2·4, K8 2) and then faithful over the 2 pod means (K6 2, K4 1),
+        # each leaf: K6 336, K4 72, K8 16.  The faithful tnqsgd run is held
+        # to the JAX package's per-leaf run (the golden harness with
+        # bucket_mb=0, the original threefry layout, 30 steps on the CPU:
+        # final loss 0.0004110558), faithful tqsgd to convergence.  The
+        # staged modes plan 576 and 336 tensors a step (4.7 and 3.0 s a
+        # step on the card), so they run 3 steps, held to the JAX package's
+        # loss at step 3 on the CPU (the same harness, its per-leaf sync
+        # run eagerly with the plans and encodes jitted: 5.563355,
+        # 5.327789; a sync that did nothing would leave about 6.49).  Each
+        # mode's sync is also held bit for bit to the CPU's, one step with
+        # the card's plans replayed (after the adaptive step below).
+        "per_leaf_faithful": (dict(sync="faithful", bucket_mb=0), (0.0004110558, 0.05),
+                              expected_launches({}, 0, 8, 64)),
+        "per_leaf_faithful_tqsgd": (dict(sync="faithful", method="tqsgd", bucket_mb=0), None,
+                                    expected_launches({}, 0, 8, 64, uniform=True)),
+        "per_leaf_two_phase": (dict(sync="two_phase", bucket_mb=0), (5.563355, 0.05),
+                               expected_launches({}, 0, 64, 576, 8), 3),
+        "per_leaf_hierarchical": (dict(sync="hierarchical", dp_sizes=(2, 4), bucket_mb=0),
+                                  (5.327789, 0.05), expected_launches({}, 0, 72, 336, 16), 3),
     }
     runs = {}
-    for label, (kw, window, counts_per_step) in golden.items():
+    for label, (kw, window, counts_per_step, *depth) in golden.items():
         # the EF-on runs twice: the loss history must repeat bit for bit
-        n_steps = steps if window is not None else short
+        n_steps = depth[0] if depth else steps if window is not None else short
         for again in ((False, True) if kw.get("error_feedback") else (False,)):
             kernels.reset_launch_counts()
             t0 = time.time()
@@ -775,7 +869,8 @@ def main() -> int:
                 launches[k] += v
             runs[label] = dict(hist=hist, counts=counts, wall=wall)
             check(abs(hist[0] - 6.4895) <= 1e-3, f"{label}: first-step loss {hist[0]}")
-            check(hist[-1] < hist[0] - 5.0, f"{label} did not converge: {hist}")
+            if not depth:
+                check(hist[-1] < hist[0] - 5.0, f"{label} did not converge: {hist}")
             if window is not None:
                 check(abs(hist[-1] - window[0]) <= window[1],
                       f"{label}: final loss {hist[-1]} outside {window[0]} ± {window[1]}")
@@ -836,7 +931,9 @@ def main() -> int:
     from repro_torch.core import codecs as kcodecs
     from repro_torch.core.compressors import plan_buckets
     from repro_torch.core.quantizers import QuantMeta
-    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.dist import reference as kreference
+    from repro_torch.dist import sharded_codec as ksharded
+    from repro_torch.dist.reference import reference_sync, reference_sync_state
     from repro_torch.dist.train_step import TrainStepConfig
 
     mixed_ts = TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.02,
@@ -848,29 +945,51 @@ def main() -> int:
     mef = [heavy(PEERS * m, 1e-4).reshape(PEERS, m)
            for m in kcodecs.bucket_state_sizes(mixed_ts.compressor, bp.sizes, mixed_ts.bits_plan)]
     mkey = prng.fold_in(prng.key(0x5EED), 0)
-    orig_plan, card_plans = kcodecs.QuantizerCodec.plan, []
+    # every planner the syncs call: the bucketed codec's, and the per-leaf
+    # codec's sort-based plan as dist.reference and dist.sharded_codec call it
+    planners = [(kcodecs.QuantizerCodec, "plan"), (kreference, "plan"), (ksharded, "plan")]
+    originals = [getattr(owner, attr) for owner, attr in planners]
 
-    def recording(self, cfg, flat, stat):
-        card_plans.append(orig_plan(self, cfg, flat, stat))
-        return card_plans[-1]
+    def card_and_cpu(run):
+        """``run("cuda")`` with every plan it makes recorded, then
+        ``run("cpu")`` with those plans replayed in order; returns both
+        results and the card run's launches."""
+        recorded = []
 
-    try:
-        kcodecs.QuantizerCodec.plan = recording
-        kernels.reset_launch_counts()
-        mean_card, ef_card, _, _ = reference_sync_state(mixed_ts, mleaves, (PEERS,), mkey, ef=mef)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        replay = iter(card_plans)
+        def recording(orig):
+            def planned(*args):
+                recorded.append(orig(*args))
+                return recorded[-1]
+            return planned
 
-        def replayed(self, cfg, flat, stat):
-            pl = next(replay)
-            return QuantMeta(levels=pl.levels.cpu(), alpha=pl.alpha.cpu())
+        replay = iter(recorded)
+        try:
+            for (owner, attr), orig in zip(planners, originals):
+                setattr(owner, attr, recording(orig))
+            kernels.reset_launch_counts()
+            card_out = run("cuda")
+            torch.cuda.synchronize()
+            step_counts = kernels.launch_counts()
+            for owner, attr in planners:
+                setattr(owner, attr, lambda *args: QuantMeta(*(x.cpu() for x in next(replay))))
+            cpu_out = run("cpu")
+        finally:
+            for (owner, attr), orig in zip(planners, originals):
+                setattr(owner, attr, orig)
+        check(next(replay, None) is None, "the CPU replay made fewer plans than the card")
+        return card_out, cpu_out, step_counts
 
-        kcodecs.QuantizerCodec.plan = replayed
-        mean_cpu, ef_cpu, _, _ = reference_sync_state(
-            mixed_ts, [x.cpu() for x in mleaves], (PEERS,), mkey, ef=[e.cpu() for e in mef])
-    finally:
-        kcodecs.QuantizerCodec.plan = orig_plan
+    def card_and_cpu_step(ts, leaves_, ef_, key_, tstate=None):
+        """One reference_sync_state step on the card and on the CPU."""
+        def run(device):
+            return reference_sync_state(
+                ts, [x.to(device) for x in leaves_], (PEERS,), key_,
+                ef=None if ef_ is None else [e.to(device) for e in ef_],
+                tstate=None if tstate is None else type(tstate)(*(x.to(device) for x in tstate)))
+        return card_and_cpu(run)
+
+    (mean_card, ef_card, _, _), (mean_cpu, ef_cpu, _, _), counts = card_and_cpu_step(
+        mixed_ts, mleaves, mef, mkey)
     want = dict.fromkeys(launches, 0)
     want.update({K1: 3 * PEERS, "encode_fused.codebook_encode_pack_resid_2d": 2 * PEERS,
                  "decode.codebook_decode_reduce_3d": 2, K11: PEERS})
@@ -892,6 +1011,118 @@ def main() -> int:
     print(f"[mixed] plan (3, ('powersgd', 4), 2) over buckets {bp.sizes}: launches "
           f"{json.dumps(counts)}; quantizer buckets bitwise card vs CPU, powersgd bucket max "
           f"abs err / max magnitude {json.dumps(mixed_err)}")
+
+    def same(card_xs, cpu_xs, what: str) -> None:
+        for i, (a, b) in enumerate(zip(card_xs, cpu_xs)):
+            check(torch.equal(a.cpu(), b), f"{what} {i} differs between the card and the CPU")
+
+    # one step of the fp16 small-bucket tier, EF on: on the mixed plan's
+    # layout with fp16_threshold 5,000 the 4,928- and 1,290-element buckets
+    # ship float16 (two values a word, no kernel: a cast) and the
+    # 200,704-element one tnqsgd at 3 bits; card and CPU bitwise equal
+    fp16_ts = TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.02,
+                              fp16_threshold=5000,
+                              compressor=CompressorConfig(method="tnqsgd", bits=3))
+    fef = [heavy(PEERS * m, 1e-4).reshape(PEERS, m) for m in bp.sizes]
+    fp16_plan = kcodecs.size_adaptive_plan(fp16_ts.compressor, None, bp.sizes, 5000)
+    check([e[0] if isinstance(e, tuple) else e.method for e in fp16_plan]
+          == ["fp16", "tnqsgd", "fp16"], f"fp16 tier plan {fp16_plan}")
+    (fmean, fres, _, _), (cmean, cres, _, _), counts = card_and_cpu_step(fp16_ts, mleaves, fef,
+                                                                        mkey)
+    want = dict.fromkeys(launches, 0)
+    want.update({K1: 3 * PEERS, "encode_fused.codebook_encode_pack_resid_2d": PEERS,
+                 "decode.codebook_decode_reduce_3d": 1})
+    check(counts == want, f"fp16 tier: launches {counts}, expected {want}")
+    same(fmean, cmean, "fp16 tier: mean leaf")
+    same(fres, cres, "fp16 tier: EF rows of bucket")
+    check(all(bool(torch.isfinite(x).all()) for x in fmean), "fp16 tier: non-finite mean")
+    print(f"[fp16] buckets {bp.sizes} under fp16_threshold 5000 "
+          f"({[e if isinstance(e, tuple) else e.method for e in fp16_plan]}): launches "
+          f"{json.dumps(counts)}; means and EF rows bitwise card vs CPU")
+
+    # one adaptive step on the same layout: 3 steps of telemetry folded in
+    # by the sync (reference_sync_state(tstate=...), EF off: K10), then the
+    # peers' rows aggregated, tails and densities estimated and bits
+    # water-filled under the uniform 3-bit plan's budget, on the card and
+    # from the same telemetry moved to the CPU: the plans must be equal; one
+    # step then runs with the plan, card against CPU bitwise
+    from repro_torch.adaptive import controller, telemetry
+
+    ada_ts = TrainStepConfig(sync="faithful", bucket_mb=0.02,
+                             adaptive=controller.AdaptiveConfig(),
+                             compressor=CompressorConfig(method="tnqsgd", bits=3))
+    tstate = telemetry.stack_rows([telemetry.init_telemetry(bp.n_buckets, dev)] * PEERS)
+    for i in range(3):
+        tleaves_ = [heavy(PEERS * math.prod(s), 10.0 ** -(2 + j % 3)).reshape(PEERS, *s)
+                    for j, s in enumerate(SMALLNET_SHAPES)]
+        kernels.reset_launch_counts()
+        _, _, tstate, _ = reference_sync_state(ada_ts, tleaves_, (PEERS,),
+                                               prng.fold_in(mkey, i), tstate=tstate)
+        check(kernels.launch_counts()[K10] == 3 * PEERS, "adaptive: K10 launches per step")
+
+    def allocate(state):
+        agg = telemetry.aggregate_peers(state)
+        budget = controller.budget_bytes(ada_ts.adaptive, ada_ts.compressor, bp.sizes)
+        return controller.allocate_bits(
+            telemetry.estimate_tails(agg), bp.sizes, budget, ada_ts.compressor,
+            dens=telemetry.estimate_densities(agg), min_bits=ada_ts.adaptive.min_bits,
+            max_bits=ada_ts.adaptive.max_bits)
+
+    bits_card = allocate(tstate)
+    bits_cpu = allocate(type(tstate)(*(x.cpu() for x in tstate)))
+    check(bits_card.bits == bits_cpu.bits and bits_card.spend_bytes == bits_cpu.spend_bytes,
+          f"adaptive: card plan {bits_card} vs CPU plan {bits_cpu}")
+    run_ts = TrainStepConfig(sync="faithful", bucket_mb=0.02, bits_plan=bits_card.bits,
+                             adaptive=ada_ts.adaptive, compressor=ada_ts.compressor)
+    (amean, _, at_card, _), (amean_cpu, _, at_cpu, _), counts = card_and_cpu_step(
+        run_ts, mleaves, None, mkey, tstate)
+    same(amean, amean_cpu, "adaptive step: mean leaf")
+    # The telemetry the step folded in: the max envelope and the step count
+    # exact; the moments within K10's rtol; the histogram up to elements at
+    # a bin edge, where the card's logf and the CPU's torch.log may round
+    # apart (each moves keep = 1 − ema of a count, and its ln|g|, at most
+    # 69.1 = −ln 1e-30, to the next bin): at most 1e-4 of the elements
+    for f in ("g_max", "steps"):
+        check(torch.equal(getattr(at_card, f).cpu(), getattr(at_cpu, f)),
+              f"adaptive step: telemetry {f} differ between the card and the CPU")
+    for f in ("mean", "msq"):
+        a, b = getattr(at_card, f).cpu(), getattr(at_cpu, f)
+        check(bool((torch.abs(a - b) <= STATS_RTOL * float(torch.abs(b).max())).all()),
+              f"adaptive step: telemetry {f} beyond rtol {STATS_RTOL} of the CPU's")
+    keep = 1.0 - ada_ts.adaptive.ema
+    dcounts = torch.abs(at_card.counts.cpu() - at_cpu.counts)
+    flips = float(dcounts.sum()) / (2 * keep)
+    check(flips <= 1e-4 * PEERS * sum(bp.sizes),
+          f"adaptive step: {flips} elements in another bin on the card than on the CPU")
+    dlog = torch.abs(at_card.log_sums.cpu() - at_cpu.log_sums)
+    check(bool((dlog <= STATS_RTOL * float(torch.abs(at_cpu.log_sums).max())
+                + 69.1 * dcounts + 1e-6).all()),
+          "adaptive step: telemetry ln sums beyond rtol and the bin-edge moves")
+    print(f"[adaptive] 3 telemetry steps, then bits {bits_card.bits} (spend "
+          f"{bits_card.spend_bytes} of {bits_card.budget_bytes} B, alphas "
+          f"{[round(a, 9) for a in bits_card.alphas]}), equal from the CPU; one step with the "
+          f"plan: launches {json.dumps(counts)}, means bitwise card vs CPU, telemetry within "
+          f"rtol {STATS_RTOL} and {flips:g} elements a bin apart")
+
+    # one per-leaf sync (reference_sync, bucket_mb=0) of the mixed plan's
+    # leaves in each mode of the per-leaf runs, on the card and then on the
+    # CPU with the card's plans replayed: every mean leaf bitwise equal
+    # (the kernels are bitwise their plain versions given the plans), and
+    # the launches those runs make a step
+    for label in ("per_leaf_faithful", "per_leaf_faithful_tqsgd", "per_leaf_two_phase",
+                  "per_leaf_hierarchical"):
+        kw, _, per_step, *_ = golden[label]
+        kw = dict(kw)
+        dp = kw.pop("dp_sizes", (PEERS,))
+        leaf_ts = TrainStepConfig(compressor=CompressorConfig(method=kw.pop("method", "tnqsgd"),
+                                                              bits=3), **kw)
+        lmean, lmean_cpu, counts = card_and_cpu(
+            lambda device: reference_sync(leaf_ts, [x.to(device) for x in mleaves], dp, mkey))
+        check(counts == per_step, f"{label} step: launches {counts}, expected {per_step}")
+        same(lmean, lmean_cpu, f"{label} step: mean leaf")
+        check(all(bool(torch.isfinite(x).all()) for x in lmean), f"{label} step: non-finite mean")
+        print(f"[per_leaf] {label} one step over dp {dp}: launches {json.dumps(counts)}; "
+              f"every mean leaf bitwise card vs CPU")
 
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:
@@ -1119,8 +1350,12 @@ def main() -> int:
     # and each encode also through the flat entry on the rows of a stacked
     # (8, n) tensor, as the path hands it the peers' buckets (at the
     # bucket every other row lies 8 bytes off a 16-byte boundary)
+    # (and the per-leaf two_phase chunk of smallnet's largest leaf: 200,704
+    # elements over 8 peers, 25,088 a row: K6/K7 encode it, K4/K5 decode 8
+    # peers' rows, K8/K9 the 8 re-encoded chunks)
     tp_chunk = chunk(cfg3, SLICE_N, PEERS)
-    for shape, sn in (("bucket", SLICE_N), ("two_phase_chunk", tp_chunk)):
+    for shape, sn in (("bucket", SLICE_N), ("two_phase_chunk", tp_chunk),
+                      ("per_leaf_chunk", 200_704 // PEERS)):
         srows = -(-sn // 128)
         stacked = heavy(PEERS * sn, 1e-3).reshape(PEERS, sn)
         sc = [to2d(x) for x in stacked]

@@ -19,9 +19,15 @@ result is a complete wire for chunk j of ``chunk_elems`` elements.
 State contract: a bucket's EF row is ``concat(resid, aux)`` of length
 ``n + state_extra(cfg, n)``; the aux tail is codec memory carried from step
 to step (``powersgd``: the warm-started Q factor), empty for the
-quantizers.  The quantizers register at import, ``powersgd`` lazily from
-``core.lowrank`` on the first lookup; the fp16 tier waits for ROADMAP
-Queue 1 item 4.
+quantizers.  The quantizers and ``fp16`` (the small-bucket tier: raw
+half precision, two values a word) register at import, ``powersgd``
+lazily from ``core.lowrank`` on the first lookup.
+
+The module-level ``encode_pack``, ``encode_pack_residual``,
+``decode_reduce`` and ``decode_rows`` are the fused per-tensor ops the
+per-leaf codec (``bucket_mb=0``) calls with a plan and a wire of its own:
+kernels K6/K7, K2/K3, K4/K5 and K8/K9 through ``kernels.ops`` on a card
+tensor, their plain versions in ``kernels.ref`` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -58,12 +64,50 @@ def _decode(cfg: CompressorConfig, op: str, words: torch.Tensor, levels: torch.T
     return getattr(ops, f"codebook_{op}")(words, levels, n, cfg.bits)
 
 
+def encode_pack(cfg: CompressorConfig, flat: torch.Tensor, meta: QuantMeta,
+                key: torch.Tensor) -> torch.Tensor:
+    """Flat fp32 -> the ``packed_size(n, bits)`` wire words in one fused
+    pass (K6, or K7 for the uniform methods)."""
+    return _encode(cfg, "encode_pack", flat, meta, key)
+
+
+def encode_pack_residual(cfg: CompressorConfig, flat: torch.Tensor, meta: QuantMeta,
+                         key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat fp32 -> (wire words, EF residual ``flat − dequant(code)``) in
+    one fused pass (K2, or K3)."""
+    return _encode(cfg, "encode_pack_residual", flat, meta, key)
+
+
+def decode_reduce(cfg: CompressorConfig, words: torch.Tensor, levels: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Unpack → dequant → peer mean of gathered wire rows (K4, or K5):
+    ``words`` (peers, packed_size(n, bits)), ``levels`` (peers, s+1);
+    returns the (n,) fp32 mean."""
+    return _decode(cfg, "decode_reduce", words, levels, n)
+
+
+def decode_rows(cfg: CompressorConfig, words: torch.Tensor, levels: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Unpack → dequant of gathered wire rows, one (n,) row per peer (K8,
+    or K9): the all-gather phase-2 shape."""
+    return _decode(cfg, "decode_rows", words, levels, n)
+
+
 def _levels_to_wire(levels: torch.Tensor) -> torch.Tensor:
     return levels.to(torch.float32).contiguous().view(torch.int32)
 
 
 def _levels_from_wire(words: torch.Tensor) -> torch.Tensor:
     return words.contiguous().view(torch.float32)
+
+
+#: collectives one bucketed sync of a compressed codec may issue, by mode:
+#: the count is bounded by the mode, never by the bucket or leaf count
+COLLECTIVE_BUDGETS = {
+    "faithful": 1,       # one fused all-gather of every peer's wire
+    "two_phase": 2,      # all-to-all reduce-scatter + all-gather of chunk wires
+    "hierarchical": 3,   # intra-pod two-phase + the cross-pod faithful exchange
+}
 
 
 class Codec:
@@ -82,6 +126,18 @@ class Codec:
     def plan(self, cfg: CompressorConfig, flat: torch.Tensor, stat):
         """Data-dependent per-bucket plan; opaque to callers."""
         return None
+
+    def collective_budget(self, mode: str, n_buckets: int = 1) -> int:
+        """Most collectives one bucketed sync of this codec issues under
+        ``mode``: one mean per bucket uncompressed (``dsgd``), else the
+        fused-wire budget of :data:`COLLECTIVE_BUDGETS`."""
+        if mode == "dsgd" or self.name == "dsgd":
+            return int(n_buckets)
+        try:
+            return COLLECTIVE_BUDGETS[mode]
+        except KeyError:
+            raise ValueError(f"unknown sync mode {mode!r}; expected one of "
+                             f"{tuple(COLLECTIVE_BUDGETS) + ('dsgd',)}") from None
 
     def wire_words(self, cfg: CompressorConfig, n: int) -> int:
         """int32 words of one peer's full-bucket transmission."""
@@ -147,13 +203,12 @@ class QuantizerCodec(Codec):
     def encode(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
                key: torch.Tensor) -> torch.Tensor:
         """Flat (n,) fp32 -> (wire_words,) wire."""
-        words = _encode(cfg, "encode_pack", flat, pln, key)
-        return torch.cat([words, _levels_to_wire(pln.levels)])
+        return torch.cat([encode_pack(cfg, flat, pln, key), _levels_to_wire(pln.levels)])
 
     def encode_residual(self, cfg: CompressorConfig, flat: torch.Tensor, pln: QuantMeta,
                         key: torch.Tensor, aux=None):
         """Flat (n,) fp32 -> (wire, EF residual ``flat − own``, None)."""
-        words, resid = _encode(cfg, "encode_pack_residual", flat, pln, key)
+        words, resid = encode_pack_residual(cfg, flat, pln, key)
         return torch.cat([words, _levels_to_wire(pln.levels)]), resid, None
 
     def _split(self, cfg: CompressorConfig, rows: torch.Tensor, n: int):
@@ -162,11 +217,11 @@ class QuantizerCodec(Codec):
 
     def decode_reduce(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
         """(peers, wire_words) gathered rows -> (n,) fp32 peer mean."""
-        return _decode(cfg, "decode_reduce", *self._split(cfg, rows, n), n)
+        return decode_reduce(cfg, *self._split(cfg, rows, n), n)
 
     def decode_rows(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
         """(peers, wire_words) rows -> (peers, n) fp32, one row per peer."""
-        return _decode(cfg, "decode_rows", *self._split(cfg, rows, n), n)
+        return decode_rows(cfg, *self._split(cfg, rows, n), n)
 
     def chunk_elems(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
         # chunks pad to 32 elements so packed chunk words slice cleanly
@@ -186,6 +241,74 @@ class QuantizerCodec(Codec):
         words, resid = _encode(cfg, "encode_pack_residual", flat, pln, key, n=n)
         lv = _levels_to_wire(pln.levels).reshape(1, -1).expand(n_chunks, -1)
         return torch.cat([words.reshape(n_chunks, -1), lv], dim=1), resid
+
+
+class Fp16Codec(Codec):
+    """Raw half precision: the size-adaptive small-bucket tier.
+
+    Buckets of at most ``TrainStepConfig.fp16_threshold`` elements skip
+    quantization and ship float16, two values a 32-bit word (the low half
+    holds the even element), the bytes of the JAX package's wire.  There
+    is no plan and no draw (rounding to nearest even), the EF residual is
+    the roundoff ``flat − f32(f16(flat))``, and ``cfg.bits`` is ignored.
+    No kernel: the encode is a cast, the words an int16 view of it.
+    """
+
+    name = "fp16"
+
+    def wire_words(self, cfg: CompressorConfig, n: int) -> int:
+        return (n + 1) // 2
+
+    def wire_bytes(self, cfg: CompressorConfig, n: int) -> int:
+        return 2 * n
+
+    @staticmethod
+    def _pack(flat: torch.Tensor) -> torch.Tensor:
+        h = flat.to(torch.float16)
+        if h.numel() % 2:
+            h = torch.cat([h, h.new_zeros(1)])
+        return h.contiguous().view(torch.int32)
+
+    @staticmethod
+    def _unpack(rows: torch.Tensor, n: int) -> torch.Tensor:
+        return rows.contiguous().view(torch.float16)[..., :n].to(torch.float32)
+
+    @staticmethod
+    def _roundoff(flat: torch.Tensor) -> torch.Tensor:
+        return flat - flat.to(torch.float16).to(torch.float32)
+
+    def encode(self, cfg: CompressorConfig, flat: torch.Tensor, pln,
+               key: torch.Tensor) -> torch.Tensor:
+        return self._pack(flat)
+
+    def encode_residual(self, cfg: CompressorConfig, flat: torch.Tensor, pln,
+                        key: torch.Tensor, aux=None):
+        return self._pack(flat), self._roundoff(flat), None
+
+    def decode_reduce(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
+        """The peers' values added in peer order, times the float32 1/peers
+        (``jnp.mean``'s bits): the same bits on the card and on the CPU."""
+        vals = self._unpack(rows, n)
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = acc + v
+        return acc * (1.0 / vals.shape[0])
+
+    def decode_rows(self, cfg: CompressorConfig, rows: torch.Tensor, n: int) -> torch.Tensor:
+        return self._unpack(rows, n)
+
+    def chunk_elems(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
+        # chunks pad to 2 elements so packed chunk words slice cleanly
+        return (n + (-n) % (n_chunks * 2)) // n_chunks
+
+    def chunk_wire_words(self, cfg: CompressorConfig, n: int, n_chunks: int) -> int:
+        return self.chunk_elems(cfg, n, n_chunks) // 2
+
+    def encode_chunks(self, cfg: CompressorConfig, flat: torch.Tensor, pln,
+                      key: torch.Tensor, n_chunks: int):
+        pad = (-flat.numel()) % (n_chunks * 2)
+        padded = torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+        return self._pack(padded).reshape(n_chunks, -1), self._roundoff(flat)
 
 
 _REGISTRY: dict[str, Codec] = {}
@@ -229,6 +352,7 @@ def known_methods() -> tuple[str, ...]:
 for _m in METHODS:
     register_codec(QuantizerCodec(_m))
 del _m
+register_codec(Fp16Codec())
 
 
 def bucket_cfg_entry(cfg: CompressorConfig, entry) -> CompressorConfig:
@@ -273,12 +397,17 @@ def bucket_cfgs(cfg: CompressorConfig, n_buckets: int,
 
 def size_adaptive_plan(cfg: CompressorConfig, plan: Sequence | None, sizes: Sequence[int],
                        threshold: int) -> Sequence | None:
-    """The fp16 small-bucket tier: a no-op unless a bucket has at most
-    ``threshold`` elements, which needs the fp16 codec (ROADMAP Queue 1
-    item 4)."""
+    """The fp16 small-bucket tier over a per-bucket plan: buckets of at
+    most ``threshold`` elements become ``("fp16", cfg.bits)``, the rest
+    keep their ``plan`` entry (``cfg`` itself when ``plan`` is None).
+    ``threshold <= 0``, or no bucket that small, returns ``plan``
+    unchanged."""
     if threshold <= 0 or not any(int(m) <= threshold for m in sizes):
         return plan
-    raise NotImplementedError("the fp16 small-bucket tier is not ported yet (ROADMAP Queue 1 item 4)")
+    base = list(plan) if plan is not None else [cfg] * len(sizes)
+    if len(base) != len(sizes):
+        raise ValueError(f"bit plan has {len(base)} entries for {len(sizes)} buckets")
+    return tuple(("fp16", cfg.bits) if int(m) <= threshold else e for e, m in zip(base, sizes))
 
 
 def bucket_state_sizes(cfg: CompressorConfig, sizes: Sequence[int],

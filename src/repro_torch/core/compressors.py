@@ -29,8 +29,6 @@ from .quantizers import (QuantMeta, decode as _decode, num_levels, pack_codes, p
                          stochastic_encode, uniform_levels, unpack_codes)
 
 METHODS = ("dsgd", "qsgd", "nqsgd", "tqsgd", "tnqsgd", "tbqsgd")
-#: registered in the JAX package but not ported yet (ROADMAP Queue 1)
-_UNPORTED_CODECS = {"fp16": "item 4"}
 #: methods whose codebook is the uniform grid over [−α, α]
 _UNIFORM = ("qsgd", "tqsgd", "dsgd")
 
@@ -49,10 +47,6 @@ class CompressorConfig:
     rank: int = 4                  # factor rank for rank-based codecs (powersgd)
 
     def __post_init__(self):
-        if self.method in _UNPORTED_CODECS:
-            raise NotImplementedError(
-                f"method {self.method!r} is not ported yet "
-                f"(ROADMAP Queue 1 {_UNPORTED_CODECS[self.method]})")
         if self.method not in METHODS:
             # registered codec families beyond the built-in quantizers
             from .codecs import known_methods
@@ -270,6 +264,12 @@ def wire_bytes(cfg: CompressorConfig, n_elements, bits=None) -> int:
         raise ValueError("bits must be in [1, 8]")
     payload = 4 * packed_size(n_elements, b) if cfg.pack else n_elements
     return payload + 4 * (num_levels(b) + 2)
+
+
+def wire_bits_per_element(cfg: CompressorConfig, n_elements, bits=None) -> float:
+    """Effective wire bits per element, metadata included (8·wire_bytes/n)."""
+    total = sum(n_elements) if isinstance(n_elements, list | tuple) else n_elements
+    return 8.0 * wire_bytes(cfg, n_elements, bits) / max(total, 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,9 @@ fitted from a log2-spaced |g| histogram with per-bin ln|g| sums
 (``tail_from_histogram``) or from the raw tensor by the sort-based Hill fit
 (``fit_power_law_tail``), and the piecewise-constant empirical density
 behind the non-uniform codebooks, from a histogram or from the tensor
-(``fit_empirical_density``).
+(``fit_empirical_density``), the truncation bias of Eq. 11
+(``truncation_bias``) and a sampler with an exact power-law tail
+(``sample_power_law``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import prng
 from .quantizers import interp, linspace
 
 # Paper restricts gamma to (3, 5]: the bias integral needs gamma > 3 and
@@ -139,6 +142,36 @@ def tail_mass(tail: PowerLawTail, alpha: torch.Tensor) -> torch.Tensor:
 def q_u(tail: PowerLawTail, alpha: torch.Tensor) -> torch.Tensor:
     """Q_U(alpha) = 1 - 2 * tail_mass(alpha), clipped to [eps, 1]."""
     return torch.clamp(1.0 - 2.0 * tail_mass(tail, alpha), _EPS, 1.0)
+
+
+def truncation_bias(tail: PowerLawTail, alpha: torch.Tensor) -> torch.Tensor:
+    """Per-element truncation bias 2·∫_α^∞ (g−α)² p(g) dg: under the
+    power-law tail 4ρ g_min^(γ−1) α^(3−γ) / ((γ−2)(γ−3)), the bracketed
+    factor of Eq. 11 without d/N."""
+    gm, ga = tail.g_min, tail.gamma
+    coeff = 4.0 * tail.rho * torch.pow(gm, ga - 1.0) / ((ga - 2.0) * (ga - 3.0))
+    return coeff * torch.pow(torch.clamp_min(torch.as_tensor(alpha), _EPS), 3.0 - ga)
+
+
+def sample_power_law(key: torch.Tensor, shape, *, gamma: float, g_min: float,
+                     rho: float = 0.5, body_scale: float | None = None,
+                     device=None) -> torch.Tensor:
+    """Synthetic heavy-tailed "gradients" with an exact power-law tail.
+
+    With probability 2ρ an element is a signed Pareto(γ−1) sample above
+    g_min, otherwise uniform body mass in [−body_scale, body_scale]
+    (``g_min`` by default).  The draws follow the JAX package's, key for
+    key: ``k_sel, k_par, k_body, k_sign = split(key, 4)``.
+    """
+    k_sel, k_par, k_body, k_sign = prng.split(key, 4)
+    u = prng.uniform(k_par, shape, device, minval=1e-6, maxval=1.0)
+    pareto = g_min * torch.pow(u, -1.0 / (gamma - 1.0))   # inverse-CDF Pareto
+    body = prng.uniform(k_body, shape, device, minval=0.0,
+                        maxval=g_min if body_scale is None else body_scale)
+    is_tail = prng.uniform(k_sel, shape, device) < 2.0 * rho
+    mag = torch.where(is_tail, pareto, body)
+    sign = torch.where(prng.bernoulli(k_sign, 0.5, shape, device), 1.0, -1.0)
+    return (sign * mag).to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)

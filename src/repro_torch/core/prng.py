@@ -182,3 +182,8 @@ def randint(k: torch.Tensor, shape, minval: int, maxval: int, device=None) -> to
     mult = ((2**16 % span) ** 2 & _MASK) % span
     off = (((hi % span) * mult) & _MASK) + (lo % span)
     return int(minval) + (off & _MASK) % span
+
+
+def bernoulli(k: torch.Tensor, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform(k, shape) < p``."""
+    return uniform(k, shape, device) < p

@@ -1,10 +1,12 @@
-"""Single-device reference of the bucketed gradient sync.
+"""Single-device reference of the gradient sync.
 
-The port of ``repro.dist.reference``'s bucketed modes: every peer's bucket
-is EF-corrected with its one-pass statistics (``correct_stats``), planned
-from those statistics and encoded under the peer's and bucket's folded key;
-the collectives of the mesh sync are replaced by indexing over a stacked
-peer axis on one device.
+The port of ``repro.dist.reference``: the collectives of the mesh sync are
+replaced by indexing over a stacked peer axis on one device.
+
+The bucketed codec (``bucket_mb > 0``): every peer's bucket is
+EF-corrected with its one-pass statistics (``correct_stats``), planned
+from those statistics and encoded under the peer's and bucket's folded
+key.
 
 - faithful: every peer's full wire is decoded into the peer mean (the
   all-gather);
@@ -17,13 +19,17 @@ peer axis on one device.
   means, with no codec aux (a cold PowerSGD start).
 
 An EF row is the residual followed by the codec's aux tail (``powersgd``:
-the warm-started Q factor; none for the quantizers).  On the card every
-step runs the port's CUDA kernels; on the CPU their plain versions.
-Ported: these three modes for the quantizer codecs and ``powersgd``, with
-error feedback on and off, mixed per-bucket plans, and the uncompressed
-``dsgd`` mean.  Still to port: the per-leaf codec (``bucket_mb=0``,
-ROADMAP Queue 1 item 8), adaptive telemetry state (item 9), elastic live
-masks (item 11) and compression metrics (item 12).
+the warm-started Q factor; none for the quantizers).  With ``tstate`` the
+peers' telemetry rows fold in the statistics the sync computed.
+
+The per-leaf codec (``bucket_mb=0``, :func:`reference_sync`): every leaf
+is synced on its own with the sort-based plan of each tensor it encodes
+(``faithful_ring_mean``, ``two_phase_mean``, ``hierarchical_mean``), under
+``fold_in(key, leaf)``; no error feedback, no telemetry, no live mask.
+
+On the card every step runs the port's CUDA kernels; on the CPU their
+plain versions.  Still to port: elastic live masks (ROADMAP Queue 1 item
+2) and compression metrics (item 3).
 """
 from __future__ import annotations
 
@@ -33,8 +39,11 @@ import torch
 
 from repro_torch.adaptive import telemetry
 from repro_torch.core import compressors, prng
-from repro_torch.core.codecs import bucket_cfgs, get_codec, size_adaptive_plan
-from repro_torch.core.compressors import CompressorConfig
+from repro_torch.core.codecs import (bucket_cfgs, decode_reduce, decode_rows, encode_pack,
+                                     get_codec, size_adaptive_plan)
+from repro_torch.core.compressors import CompressorConfig, plan
+
+from . import sharded_codec as sc
 
 
 def _peer_stats(buckets: list, stats: list | None) -> list:
@@ -60,6 +69,82 @@ def _in_keys(key, n: int) -> list:
     """Per-peer incoming keys: one key for every peer, or the per-peer list
     the hierarchical intra-pod stage hands in, already folded."""
     return list(key) if isinstance(key, list | tuple) else [key] * n
+
+
+def _fold(key: torch.Tensor, i: int) -> torch.Tensor:
+    """The key of the peer whose flat axis index is ``i``."""
+    return prng.fold_in(key, i)
+
+
+# -- the per-leaf codec (bucket_mb=0) ----------------------------------------
+
+
+def faithful_ring_mean(cfg: CompressorConfig, stacked: torch.Tensor, key) -> torch.Tensor:
+    """Faithful mean of ``stacked`` (n, m) per-peer tensors: peer i plans
+    its tensor, encodes it under ``fold_in(key_i, i)`` (its incoming key
+    itself when n == 1) and every peer's wire is decoded into the mean."""
+    n = stacked.shape[0]
+    keys = _in_keys(key, n)
+    words, levels = [], []
+    for i in range(n):
+        flat = stacked[i].reshape(-1).to(torch.float32)
+        meta = plan(cfg, flat)
+        words.append(encode_pack(cfg, flat, meta, keys[0] if n == 1 else _fold(keys[i], i)))
+        levels.append(meta.levels)
+    return decode_reduce(cfg, torch.stack(words), torch.stack(levels), stacked[0].numel())
+
+
+def two_phase_mean(cfg: CompressorConfig, stacked: torch.Tensor, key) -> torch.Tensor:
+    """Two-phase mean of ``stacked`` (n, size): a compressed reduce-scatter,
+    then a compressed all-gather, the same on every peer.
+
+    Peer i's incoming key is folded by i and split: ``[0]`` folded by i
+    keys its n chunk rows (the tensor zero-padded to n·m, m = ceil(size/n),
+    each row planned and keyed on its own), ``[1]`` its re-encode of mean
+    chunk i, planned afresh.
+    """
+    n, size = stacked.shape
+    if n == 1:
+        return stacked[0]
+    keys = [prng.split(_fold(k, j)) for j, k in enumerate(_in_keys(key, n))]
+    pad = (-size) % n
+    m = (size + pad) // n
+    # phase 1 (reduce-scatter): peer i packs its n chunk rows; peer j
+    # decodes row j of every peer (the all-to-all transpose) into its chunk
+    words, levels = [], []
+    for i in range(n):
+        flats = torch.cat([stacked[i].to(torch.float32),
+                           stacked.new_zeros(pad, dtype=torch.float32)]).reshape(n, m)
+        w, metas = sc._plan_encode_rows(cfg, flats, _fold(keys[i][0], i))
+        words.append(w)
+        levels.append(metas.levels)
+    chunks = [decode_reduce(cfg, torch.stack([w[j] for w in words]),
+                            torch.stack([lv[j] for lv in levels]), m) for j in range(n)]
+    # phase 2 (all-gather): each peer re-quantizes its mean chunk
+    words2, levels2 = [], []
+    for j in range(n):
+        meta2 = plan(cfg, chunks[j])
+        words2.append(encode_pack(cfg, chunks[j], meta2, keys[j][1]))
+        levels2.append(meta2.levels)
+    full = decode_rows(cfg, torch.stack(words2), torch.stack(levels2), m)
+    return full.reshape(n * m)[:size]
+
+
+def hierarchical_mean(cfg: CompressorConfig, stacked: torch.Tensor, n_pod: int,
+                      key: torch.Tensor) -> torch.Tensor:
+    """Two-phase inside each pod's data axis (peer d of pod p enters with
+    ``fold_in(k1, p·nd + d)``), faithful across the pod means under k2,
+    where ``k1, k2 = split(key)``."""
+    n = stacked.shape[0]
+    nd = n // n_pod
+    k1, k2 = prng.split(key)
+    pod_means = [two_phase_mean(cfg, stacked[p * nd:(p + 1) * nd],
+                                [_fold(k1, p * nd + d) for d in range(nd)])
+                 for p in range(n_pod)]
+    return faithful_ring_mean(cfg, torch.stack(pod_means), k2)
+
+
+# -- the bucketed codec -------------------------------------------------------
 
 
 def bucketed_faithful_ring_mean(
@@ -189,16 +274,20 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     ``stacked_leaves``: one (n, *leaf_shape) fp32 tensor per gradient leaf,
     in ``jax.tree.leaves`` order; ``dp_sizes``: the data-parallel axis
     sizes (their product is n); ``ef``: a list of stacked (n, m_b)
-    bucket-resident residuals, or None.  Returns ``(mean_leaves,
-    resid_stacked | None, None, None)``; the last two slots are the JAX
-    package's telemetry state and compression metrics.
+    bucket-resident residuals, or None; ``tstate``: a per-peer stacked
+    :class:`~repro_torch.adaptive.telemetry.TelemetryState` (leaves with a
+    leading axis n), or None.  Returns ``(mean_leaves, resid_stacked |
+    None, new_tstate | None, None)``; the last slot is the JAX package's
+    compression metrics.  The telemetry rows fold in the statistics of
+    the corrected buckets the sync computes (K1 with EF, else K10), with
+    the decay ``ts.adaptive.ema``.
     """
-    if tstate is not None:
-        raise NotImplementedError("adaptive telemetry state is not ported yet (ROADMAP Queue 1 item 9)")
     if live is not None:
-        raise NotImplementedError("elastic live masks are not ported yet (ROADMAP Queue 1 item 11)")
+        raise NotImplementedError("elastic live masks are not ported yet (ROADMAP Queue 1 "
+                                  "item 2)")
     if ts.metrics_compression:
-        raise NotImplementedError("compression metrics are not ported yet (ROADMAP Queue 1 item 12)")
+        raise NotImplementedError("compression metrics are not ported yet (ROADMAP Queue 1 "
+                                  "item 3)")
     cfg = ts.compressor
     n = 1
     for s in dp_sizes:
@@ -217,7 +306,7 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
         aux = [ef[b][:, bp.sizes[b]:] if x else None for b, x in enumerate(extras)]
         ef = [ef[b][:, :bp.sizes[b]] if x else ef[b] for b, x in enumerate(extras)]
     stats = None
-    if compressed:
+    if compressed or tstate is not None:
         stats = []
         for j in range(n):
             row, srow = [], []
@@ -227,6 +316,12 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
                 srow.append(st)
             per_peer[j] = row
             stats.append(srow)
+    new_t = None
+    if tstate is not None:
+        rows = [telemetry.update_telemetry(telemetry.peer_row(tstate, j), per_peer[j],
+                                           decay=ts.adaptive.ema, stats=stats[j])
+                for j in range(n)]
+        new_t = telemetry.stack_rows(rows)
     buckets = [torch.stack([per_peer[j][b] for j in range(n)]) for b in range(bp.n_buckets)]
     if not compressed:
         means, resids = [torch.mean(sb, dim=0) for sb in buckets], None
@@ -238,14 +333,43 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
         means, resids = bucketed_hierarchical_mean(cfg, buckets, n_pod, key, bits, stats, aux)
     if not ts.error_feedback:
         resids = None
-    return compressors.bucket_split(means, bp, shapes), resids, None, None
+    return compressors.bucket_split(means, bp, shapes), resids, new_t, None
 
 
 def reference_sync(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.Tensor,
                    live=None) -> list:
-    """Synced gradient mean as every peer of the mesh computes it (the mean
-    leaves of :func:`reference_sync_state`)."""
-    if ts.bucket_mb <= 0:
-        raise NotImplementedError("the per-leaf codec (bucket_mb=0) is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
-    return reference_sync_state(ts, stacked_leaves, dp_sizes, key, live=live)[0]
+    """Synced gradient mean as every peer of the mesh computes it.
+
+    ``bucket_mb > 0``: the mean leaves of :func:`reference_sync_state`.
+    ``bucket_mb <= 0``: the per-leaf codec, leaf i synced on its own under
+    ``fold_in(key, i)``: the plain mean for ``dsgd``, else the sync mode's
+    per-tensor mean (two_phase also on a one-axis layout; hierarchical as
+    two-phase inside each pod of ``dp_sizes[-1]`` peers, keyed by
+    ``fold_in(k1, j)`` for peer j, then faithful across pods under k2).
+    The per-leaf path has no live mask: ``live`` raises ``ValueError``.
+    """
+    cfg = ts.compressor
+    if ts.bucket_mb > 0:
+        return reference_sync_state(ts, stacked_leaves, dp_sizes, key, live=live)[0]
+    if live is not None:
+        raise ValueError("elastic live masks require the bucketed codec (bucket_mb > 0); "
+                         "the per-leaf path has no live-set semantics")
+    n = 1
+    for s in dp_sizes:
+        n *= s
+    n_pod = n // dp_sizes[-1]
+    out = []
+    for i, x in enumerate(stacked_leaves):
+        ki = prng.fold_in(key, i)
+        flat = x.reshape(n, -1).to(torch.float32)
+        if ts.sync == "dsgd" or cfg.method == "dsgd":
+            # jnp.mean's bits: the peer sum times the float32 1/n
+            mean = torch.sum(flat, dim=0) * (1.0 / n)
+        elif ts.sync == "faithful":
+            mean = faithful_ring_mean(cfg, flat, ki)
+        elif ts.sync == "two_phase" or len(dp_sizes) == 1:
+            mean = two_phase_mean(cfg, flat, ki)
+        else:
+            mean = hierarchical_mean(cfg, flat, n_pod, ki)
+        out.append(mean.reshape(x.shape[1:]))
+    return out

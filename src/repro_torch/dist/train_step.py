@@ -1,11 +1,13 @@
 """Per-step gradient-sync configuration — the fields of
-``repro.dist.train_step.TrainStepConfig`` that the bucketed reference sync
-reads.  The mesh train step itself is still to port (ROADMAP Queue 1
-item 7)."""
+``repro.dist.train_step.TrainStepConfig`` that the reference sync reads,
+with the JAX package's checks.  ``streamed``, ``metrics_gnorm`` and
+``elastic`` come with the mesh train step, elastic participation and the
+metrics (ROADMAP Queue 1 items 1–3)."""
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.adaptive.controller import AdaptiveConfig
 from repro_torch.core.compressors import CompressorConfig
 
 SYNC_MODES = ("dsgd", "two_phase", "hierarchical", "faithful")
@@ -16,13 +18,18 @@ class TrainStepConfig:
     """``bucket_mb > 0`` coalesces the gradient leaves into ~``bucket_mb``-MB
     fp32 buckets with one codebook each; ``error_feedback`` carries a
     bucket-resident (n_clients, bucket_elems) EF residual from step to
-    step; ``bits_plan`` gives each bucket its own width; buckets of at most
-    ``fp16_threshold`` elements would ship raw fp16 (0 = off)."""
+    step; ``adaptive`` keeps a per-client telemetry state the same way
+    (``dist.reference.reference_sync_state(tstate=...)``, decay
+    ``adaptive.ema``); ``bits_plan`` gives each bucket its own width;
+    buckets of at most ``fp16_threshold`` elements ship raw fp16 (0 =
+    off).  ``bucket_mb=0`` selects the per-leaf codec, which takes none of
+    these."""
 
     sync: str = "dsgd"
     compressor: CompressorConfig = dataclasses.field(default_factory=CompressorConfig)
     bucket_mb: float = 4.0
     error_feedback: bool = False
+    adaptive: AdaptiveConfig | None = None
     bits_plan: tuple[int, ...] | None = None
     metrics_compression: bool = False
     fp16_threshold: int = 0
@@ -37,6 +44,11 @@ class TrainStepConfig:
                 raise ValueError("error_feedback requires a compressed sync mode/method")
             if self.bucket_mb <= 0:
                 raise ValueError("error_feedback requires the bucketed codec (bucket_mb > 0)")
+        if self.adaptive is not None:
+            if self.sync == "dsgd" or self.compressor.method == "dsgd":
+                raise ValueError("adaptive telemetry requires a compressed sync mode/method")
+            if self.bucket_mb <= 0:
+                raise ValueError("adaptive telemetry requires the bucketed codec (bucket_mb > 0)")
         if self.metrics_compression and self.bucket_mb <= 0:
             raise ValueError("metrics_compression requires the bucketed codec (bucket_mb > 0)")
         if self.fp16_threshold < 0:

@@ -1,6 +1,6 @@
 """Momentum SGD over the nested param dicts (the paper's optimizer:
 lr 0.01, momentum 0.9, weight decay 5e-4).  AdamW for the LM zoo is still
-to port (ROADMAP Queue 1 item 6)."""
+to port (ROADMAP Queue 1 item 1)."""
 from __future__ import annotations
 
 from collections.abc import Callable

@@ -3,8 +3,9 @@
 ``train_synced`` is the port's counterpart of the JAX package's golden
 convergence run (``tests/test_golden_convergence.py::_run``): smallnet on
 the synthetic shapes task, ``n_clients`` clients with their own batches,
-gradients synced each step through the bucketed reference sync
-(``dist.reference``), momentum SGD on the synced mean.  On the card every
+gradients synced each step through the reference sync
+(``dist.reference``: bucketed, or per leaf with ``bucket_mb=0``), momentum
+SGD on the synced mean.  On the card every
 sync runs the port's CUDA kernels.
 
 ``train_clients`` is the counterpart of ``benchmarks/common.py::
@@ -78,13 +79,16 @@ def client_grads(params: dict, imgs: torch.Tensor, labels: torch.Tensor):
 
 def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
                  error_feedback: bool = False, steps: int = 30, n_clients: int = 8,
-                 batch: int = 32, device="cuda", dp_sizes: tuple | None = None) -> list[float]:
+                 batch: int = 32, device="cuda", dp_sizes: tuple | None = None,
+                 bucket_mb: float = 4.0) -> list[float]:
     """Fixed-seed synced training; returns the per-step mean client loss.
 
     ``dp_sizes`` lays the clients out as (pods…, data), row-major, for the
     hierarchical sync (default ``(n_clients,)``: one pod).  ``method="powersgd"``
     runs at ``CompressorConfig``'s rank 4, and its EF rows also carry the
-    warm-started Q factor (``bucket_state_sizes``).
+    warm-started Q factor (``bucket_state_sizes``).  ``bucket_mb`` is
+    ``TrainStepConfig``'s: 0 syncs every leaf on its own (the per-leaf
+    codec, no error feedback).
 
     Seeds follow the JAX run: ``key(0)`` for the init, ``key(42)`` for the
     class templates and ``fold_in(key(0x5EED), i)`` for step i's sync.  TF32 is
@@ -98,7 +102,7 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     if math.prod(dp_sizes) != n_clients:
         raise ValueError(f"dp_sizes {dp_sizes} do not multiply to n_clients={n_clients}")
     _float32_and_deterministic()
-    ts = TrainStepConfig(sync=sync, error_feedback=error_feedback,
+    ts = TrainStepConfig(sync=sync, error_feedback=error_feedback, bucket_mb=bucket_mb,
                          compressor=CompressorConfig(method=method, bits=bits))
     templates = make_templates(prng.key(42), device=device)
     params = init_smallnet(prng.key(0), device=device)

@@ -103,9 +103,12 @@ def test_config_validation():
         compressors.CompressorConfig(bits=9)
     with pytest.raises(ValueError):
         compressors.CompressorConfig(method="nope")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        compressors.CompressorConfig(method="fp16")
+    assert compressors.CompressorConfig(method="fp16").method == "fp16"
     assert compressors.CompressorConfig(method="powersgd", rank=8).rank == 8
     assert codecs.bucket_state_sizes(compressors.CompressorConfig(), [5, 7]) == [5, 7]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        codecs.size_adaptive_plan(compressors.CompressorConfig(), None, [5, 700], 10)
+    assert codecs.size_adaptive_plan(compressors.CompressorConfig(), None, [5, 700], 10) == \
+        (("fp16", 3), compressors.CompressorConfig())
+    from repro.core import codecs as jcodecs
+
+    assert jcodecs.size_adaptive_plan(jcomp.CompressorConfig(), None, [5, 700], 10) == \
+        (("fp16", 3), jcomp.CompressorConfig())

@@ -731,3 +731,47 @@ def test_powersgd_training_runs_through_k11(cuda):
     assert counts["encode_fused.ef_correct_stats_2d"] == 16
     assert counts["orthogonalize.orthogonalize_2d"] == 16
     assert sum(counts.values()) == 32
+
+
+# the per-leaf codec's row shapes (bucket_mb=0): smallnet's leaves split
+# over 8 peers (rows of 2 and 4), a (2, 4) pod, the 144- and 4,608-element
+# leaves' rows (18, 576), over 1, 2, 4 and 8 peers
+PER_LEAF_N = [2, 4, 18, 576]
+
+
+@pytest.mark.parametrize("method", ["tnqsgd", "tqsgd"])
+@pytest.mark.parametrize("n", PER_LEAF_N)
+def test_per_leaf_rows_bitwise(cuda, n, method):
+    """K6/K7 then K4/K5 and K8/K9 through ``core.codecs`` as the per-leaf
+    sync calls them, on rows planned by the sort-based fit: the card's
+    words, means and rows bitwise the plain versions' on the CPU."""
+    from repro_torch.core import codecs
+    from repro_torch.core.compressors import CompressorConfig, plan
+
+    cfg = CompressorConfig(method=method, bits=3)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    for peers in (1, 2, 4, 8):
+        rows = [_heavy(gen, n, cuda) for _ in range(peers)]
+        metas = [plan(cfg, x) for x in rows]
+        keys = [prng.fold_in(prng.key(n), p) for p in range(peers)]
+        wire = torch.stack([codecs.encode_pack(cfg, x, m, k) for x, m, k in zip(rows, metas, keys)])
+        cpu_metas = [m._replace(levels=m.levels.cpu(), alpha=m.alpha.cpu()) for m in metas]
+        wire_cpu = torch.stack([codecs.encode_pack(cfg, x.cpu(), m, k)
+                                for x, m, k in zip(rows, cpu_metas, keys)])
+        assert wire.shape == (peers, packed_size(n, 3)) and torch.equal(wire.cpu(), wire_cpu)
+        levels = torch.stack([m.levels for m in metas])
+        for op in (codecs.decode_reduce, codecs.decode_rows):
+            assert torch.equal(op(cfg, wire, levels, n).cpu(), op(cfg, wire_cpu, levels.cpu(), n))
+
+
+def test_per_leaf_training_runs_through_the_kernels(cuda):
+    from repro_torch.train import train_synced
+
+    kernels.reset_launch_counts()
+    hist = train_synced(sync="two_phase", bucket_mb=0, steps=1, device="cuda")
+    counts = kernels.launch_counts()
+    assert len(hist) == 1 and hist[0] == hist[0]
+    assert counts["encode_fused.codebook_encode_pack_2d"] == 576
+    assert counts["decode.codebook_decode_reduce_3d"] == 64
+    assert counts["decode.codebook_decode_rows_3d"] == 8
+    assert sum(counts.values()) == 648
