@@ -47,7 +47,9 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    ``repro_torch.train.train_synced``: at 3 bits faithful tnqsgd (EF off and
    on), two_phase tnqsgd (EF off, and EF on), hierarchical (2, 4) tnqsgd,
    faithful tqsgd and qsgd, two_phase tqsgd; PowerSGD at rank 4 with EF
-   in the faithful, two_phase (8,) and hierarchical (2, 4) modes; each
+   in the faithful, two_phase (8,) and hierarchical (2, 4) modes; the
+   20%-dropout EF run (faithful tnqsgd, ``ElasticConfig(rate=0.2,
+   seed=0x17E)``, its live peers per step the JAX package's); each
    EF-on run twice to show it repeats bit for bit.  Each run is held to the
    JAX package's golden window after 30 steps (or its own value under the
    original threefry layout), or to convergence after 15 steps, and every
@@ -69,7 +71,16 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    the card and from the same telemetry on the CPU, equal, then a step
    with them) and one per-leaf sync in each of the four per-leaf runs'
    modes, each on the card held against the same step on the CPU with
-   the card's plans replayed;
+   the card's plans replayed.  Then elastic participation under a mask
+   that drops pod 0 of (2, 4) and peer 5: one step in each bucketed mode
+   (tnqsgd with EF and telemetry), one of the fp16 tier and one of
+   faithful powersgd, card against CPU (means and EF rows bitwise,
+   powersgd's within rtol 1e-5, every dropped peer's EF row its corrected
+   bucket); the straggler pin (a dropped peer's gradient times -3.7 moves
+   no mean bit, faithful and two_phase); the solo survivor (the faithful
+   mean bitwise the survivor's own decoded wire); and one step with
+   ``metrics_compression``, with and without the mask, card against CPU
+   (every metric bitwise but the predicted E_TQ, within PRED_CARD_RTOL);
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -108,6 +119,7 @@ RAGGED_N = 100_003                 # not a multiple of 32
 FP32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 STATS_RTOL = 1e-5
 GS_RTOL, GS_ATOL = 1e-5, 1e-6      # K11 against its plain version (another sum order)
+PRED_CARD_RTOL = 1e-3              # a metrics step's predicted E_TQ, card against CPU
 # The JAX package's per-tensor runs (benchmarks/common.py::train_clients,
 # 8 clients, batch 32, 30 rounds, 3 bits, CompressorConfig bound to
 # use_pallas=True, the original threefry layout, on the CPU): label ->
@@ -123,6 +135,10 @@ JAX_PER_TENSOR = {
                              (0.0018120473250746727, 0.99462890625),
                              "quantize.codebook_encode_2d", 8),
 }
+# live peers per step of the JAX package's 20%-dropout golden run
+# (ElasticConfig(rate=0.2, seed=0x17E), 8 peers, steps 0-29)
+DROPOUT_LIVE = [4, 7, 7, 8, 6, 6, 4, 6, 6, 5, 8, 6, 7, 7, 5, 5, 7, 8, 6, 5, 5, 7, 6, 6, 8, 7, 6, 7,
+                7, 5]
 OPS_ONLY = ("quantize.uniform_decode_2d", "quantize.codebook_decode_2d",
             "quantize.uniform_encode_pack_2d", "quantize.codebook_encode_pack_2d")
 # smallnet's gradient leaves, in jax.tree.leaves order
@@ -165,6 +181,7 @@ def card_line() -> str:
 
 
 def main() -> int:
+    t_script = time.time()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
               file=sys.stderr)
@@ -752,6 +769,7 @@ def main() -> int:
               f"version per tile and the one-tile launches, also through kernels.ops")
 
     # -- 4. main path -----------------------------------------------------
+    from repro_torch.elastic import ElasticConfig, live_mask, partition, solo_survivor
     from repro_torch.train import train_synced
 
     # 30 steps for a run held to a window; a run held to convergence alone
@@ -780,11 +798,16 @@ def main() -> int:
 
     launches = {kernels.kernel_name(k): 0 for k in kernels.KERNELS}
     ef_off, ef_on = {K10: 8}, {K1: 8}
+    DROPOUT = ElasticConfig(rate=0.2, seed=0x17E)
     golden = {
         "faithful_ef_off": (dict(sync="faithful"), (0.0162, 0.05),
                             expected_launches(ef_off, 8, 1)),
         "faithful_ef_on": (dict(sync="faithful", error_feedback=True), None,
                            expected_launches(ef_on, 8, 1)),
+        # 20% scheduled dropout, EF on: the JAX package's elastic golden
+        # window; every peer still encodes (a dead peer's wire is zeroed)
+        "faithful_ef_dropout20": (dict(sync="faithful", error_feedback=True, elastic=DROPOUT),
+                                  (0.0938, 0.07), expected_launches(ef_on, 8, 1)),
         "two_phase_ef_off": (dict(sync="two_phase"), (0.0037, 0.05),
                              expected_launches({K10: 16}, 8, 8, 8, 1)),
         "two_phase_ef_on": (dict(sync="two_phase", error_feedback=True), None,
@@ -874,6 +897,14 @@ def main() -> int:
             if window is not None:
                 check(abs(hist[-1] - window[0]) <= window[1],
                       f"{label}: final loss {hist[-1]} outside {window[0]} ± {window[1]}")
+
+    # the dropout run's schedule: live peers per step, the JAX package's
+    live_counts = [int(live_mask(DROPOUT, i, PEERS, dev).sum()) for i in range(steps)]
+    print(f"[golden] faithful_ef_dropout20 live peers per step {json.dumps(live_counts)}, "
+          "launches per step " + json.dumps({k: v // steps for k, v in
+                                               runs["faithful_ef_dropout20"]["counts"].items()
+                                               if v}))
+    check(live_counts == DROPOUT_LIVE, f"dropout schedule {live_counts}, expected {DROPOUT_LIVE}")
 
     # the paper's per-tensor §V loop (train_clients): 8 clients, batch 32,
     # 30 rounds, every leaf planned by the sort-based fit and encoded with
@@ -979,13 +1010,14 @@ def main() -> int:
         check(next(replay, None) is None, "the CPU replay made fewer plans than the card")
         return card_out, cpu_out, step_counts
 
-    def card_and_cpu_step(ts, leaves_, ef_, key_, tstate=None):
+    def card_and_cpu_step(ts, leaves_, ef_, key_, tstate=None, dp=(PEERS,), live=None):
         """One reference_sync_state step on the card and on the CPU."""
         def run(device):
             return reference_sync_state(
-                ts, [x.to(device) for x in leaves_], (PEERS,), key_,
+                ts, [x.to(device) for x in leaves_], dp, key_,
                 ef=None if ef_ is None else [e.to(device) for e in ef_],
-                tstate=None if tstate is None else type(tstate)(*(x.to(device) for x in tstate)))
+                tstate=None if tstate is None else type(tstate)(*(x.to(device) for x in tstate)),
+                live=None if live is None else live.to(device))
         return card_and_cpu(run)
 
     (mean_card, ef_card, _, _), (mean_cpu, ef_cpu, _, _), counts = card_and_cpu_step(
@@ -1077,27 +1109,32 @@ def main() -> int:
     (amean, _, at_card, _), (amean_cpu, _, at_cpu, _), counts = card_and_cpu_step(
         run_ts, mleaves, None, mkey, tstate)
     same(amean, amean_cpu, "adaptive step: mean leaf")
-    # The telemetry the step folded in: the max envelope and the step count
-    # exact; the moments within K10's rtol; the histogram up to elements at
-    # a bin edge, where the card's logf and the CPU's torch.log may round
-    # apart (each moves keep = 1 − ema of a count, and its ln|g|, at most
-    # 69.1 = −ln 1e-30, to the next bin): at most 1e-4 of the elements
-    for f in ("g_max", "steps"):
-        check(torch.equal(getattr(at_card, f).cpu(), getattr(at_cpu, f)),
-              f"adaptive step: telemetry {f} differ between the card and the CPU")
-    for f in ("mean", "msq"):
-        a, b = getattr(at_card, f).cpu(), getattr(at_cpu, f)
-        check(bool((torch.abs(a - b) <= STATS_RTOL * float(torch.abs(b).max())).all()),
-              f"adaptive step: telemetry {f} beyond rtol {STATS_RTOL} of the CPU's")
-    keep = 1.0 - ada_ts.adaptive.ema
-    dcounts = torch.abs(at_card.counts.cpu() - at_cpu.counts)
-    flips = float(dcounts.sum()) / (2 * keep)
-    check(flips <= 1e-4 * PEERS * sum(bp.sizes),
-          f"adaptive step: {flips} elements in another bin on the card than on the CPU")
-    dlog = torch.abs(at_card.log_sums.cpu() - at_cpu.log_sums)
-    check(bool((dlog <= STATS_RTOL * float(torch.abs(at_cpu.log_sums).max())
-                + 69.1 * dcounts + 1e-6).all()),
-          "adaptive step: telemetry ln sums beyond rtol and the bin-edge moves")
+
+    def telemetry_close(at_card, at_cpu, keep: float, what: str) -> float:
+        """The telemetry a step folded in, card against CPU: the max
+        envelope and the step count exact; the moments within K10's rtol;
+        the histogram up to elements at a bin edge, where the card's logf
+        and the CPU's torch.log may round apart (each moves keep = 1 − ema
+        of a count, and its ln|g|, at most 69.1 = −ln 1e-30, to the next
+        bin): at most 1e-4 of the elements.  Returns the elements moved."""
+        for f in ("g_max", "steps"):
+            check(torch.equal(getattr(at_card, f).cpu(), getattr(at_cpu, f)),
+                  f"{what}: telemetry {f} differ between the card and the CPU")
+        for f in ("mean", "msq"):
+            a, b = getattr(at_card, f).cpu(), getattr(at_cpu, f)
+            check(bool((torch.abs(a - b) <= STATS_RTOL * float(torch.abs(b).max())).all()),
+                  f"{what}: telemetry {f} beyond rtol {STATS_RTOL} of the CPU's")
+        dcounts = torch.abs(at_card.counts.cpu() - at_cpu.counts)
+        moved = float(dcounts.sum()) / (2 * keep)
+        check(moved <= 1e-4 * PEERS * sum(bp.sizes),
+              f"{what}: {moved} elements in another bin on the card than on the CPU")
+        dlog = torch.abs(at_card.log_sums.cpu() - at_cpu.log_sums)
+        check(bool((dlog <= STATS_RTOL * float(torch.abs(at_cpu.log_sums).max())
+                    + 69.1 * dcounts + 1e-6).all()),
+              f"{what}: telemetry ln sums beyond rtol and the bin-edge moves")
+        return moved
+
+    flips = telemetry_close(at_card, at_cpu, 1.0 - ada_ts.adaptive.ema, "adaptive step")
     print(f"[adaptive] 3 telemetry steps, then bits {bits_card.bits} (spend "
           f"{bits_card.spend_bytes} of {bits_card.budget_bytes} B, alphas "
           f"{[round(a, 9) for a in bits_card.alphas]}), equal from the CPU; one step with the "
@@ -1123,6 +1160,178 @@ def main() -> int:
         check(all(bool(torch.isfinite(x).all()) for x in lmean), f"{label} step: non-finite mean")
         print(f"[per_leaf] {label} one step over dp {dp}: launches {json.dumps(counts)}; "
               f"every mean leaf bitwise card vs CPU")
+
+    t_elastic = time.time()
+    # elastic participation, one step per bucketed mode on the mixed plan's
+    # layout (buckets of 4,928, 200,704 and 1,290), tnqsgd at 3 bits with EF
+    # and telemetry, on the card and then on the CPU with the card's plans
+    # replayed, under a mask that kills pod 0 of (2, 4) and peer 5: means,
+    # EF rows and launches bitwise; a dropped peer's EF row is its whole
+    # corrected bucket; the telemetry as in the adaptive step.  Every peer
+    # still encodes: per bucket faithful K2 8, K4 1; two_phase (8,) K2 8,
+    # K4 8, K10 8 (the chunk means' plans), K6 8, K8 1; hierarchical (2, 4)
+    # K2 8 + 2, K4 8 + 1, K10 8 + 2, K6 8, K8 2; K1 8 each.
+    from repro_torch.core.compressors import bucket_concat
+    from repro_torch.obs import metrics
+
+    nb = bp.n_buckets
+    elastic_live = live_mask(partition(PEERS, down=(0, 1, 2, 3, 5), down_steps=1).elastic(), 0,
+                             PEERS, dev)
+    check(elastic_live.tolist() == [0.0] * 4 + [1.0, 0.0, 1.0, 1.0], f"mask {elastic_live}")
+    dead = [p for p in range(PEERS) if elastic_live[p] == 0.0]
+    corrected = [[g + e[p] for g, e in zip(bucket_concat([x[p] for x in mleaves], bp), fef)]
+                 for p in range(PEERS)]
+
+    def counts_of(**per_bucket) -> dict:
+        want = dict.fromkeys(launches, 0)
+        names = {"K1": K1, "K10": K10, "K11": K11, "K2": "encode_fused.codebook_encode_pack_resid_2d",
+                 "K4": "decode.codebook_decode_reduce_3d", "K6": "encode_fused.codebook_encode_pack_2d",
+                 "K8": "decode.codebook_decode_rows_3d"}
+        want.update({names[k]: v for k, v in per_bucket.items()})
+        return want
+
+    def dead_rows_are_buckets(resids, what: str) -> None:
+        for b in range(nb):
+            for p in dead:
+                check(torch.equal(resids[b][p][:bp.sizes[b]], corrected[p][b]),
+                      f"{what}: dropped peer {p}'s EF row of bucket {b} is not its corrected "
+                      f"bucket")
+
+    el_modes = {
+        "faithful": ((PEERS,), counts_of(K1=8 * nb, K2=8 * nb, K4=nb)),
+        "two_phase": ((PEERS,), counts_of(K1=8 * nb, K2=8 * nb, K4=8 * nb, K10=8 * nb, K6=8 * nb,
+                                          K8=nb)),
+        "hierarchical": ((2, PEERS // 2), counts_of(K1=8 * nb, K2=10 * nb, K4=9 * nb, K10=10 * nb,
+                                                    K6=8 * nb, K8=2 * nb)),
+    }
+    for sync, (dp, want) in el_modes.items():
+        el_ts = TrainStepConfig(sync=sync, error_feedback=True, bucket_mb=0.02,
+                                adaptive=controller.AdaptiveConfig(),
+                                compressor=CompressorConfig(method="tnqsgd", bits=3))
+        t0 = telemetry.stack_rows([telemetry.init_telemetry(nb, dev)] * PEERS)
+        (emean, eres, et_card, _), (emean_cpu, eres_cpu, et_cpu, _), counts = card_and_cpu_step(
+            el_ts, mleaves, fef, mkey, t0, dp, elastic_live)
+        check(counts == want, f"elastic {sync}: launches {counts}, expected {want}")
+        same(emean, emean_cpu, f"elastic {sync}: mean leaf")
+        same(eres, eres_cpu, f"elastic {sync}: EF rows of bucket")
+        dead_rows_are_buckets(eres, f"elastic {sync}")
+        check(all(bool(torch.isfinite(x).all()) for x in emean), f"elastic {sync}: non-finite mean")
+        moved = telemetry_close(et_card, et_cpu, 1.0 - el_ts.adaptive.ema, f"elastic {sync}")
+        print(f"[elastic] {sync} over dp {dp}, live {elastic_live.tolist()}: launches "
+              f"{json.dumps(counts)}; means and EF rows bitwise card vs CPU, dropped peers' EF "
+              f"rows their corrected buckets, telemetry {moved:g} elements a bin apart")
+
+    # the fp16 tier under the mask: buckets 0 and 2 ship float16; bitwise
+    (fmean, fres, _, _), (cmean, cres, _, _), counts = card_and_cpu_step(
+        fp16_ts, mleaves, fef, mkey, live=elastic_live)
+    want = counts_of(K1=3 * PEERS, K2=PEERS, K4=1)
+    check(counts == want, f"elastic fp16 tier: launches {counts}, expected {want}")
+    same(fmean, cmean, "elastic fp16 tier: mean leaf")
+    same(fres, cres, "elastic fp16 tier: EF rows of bucket")
+    dead_rows_are_buckets(fres, "elastic fp16 tier")
+    print(f"[elastic] fp16 tier under the mask: launches {json.dumps(counts)}; means and EF rows "
+          f"bitwise card vs CPU")
+
+    # faithful powersgd (rank 4, EF on, a random warm start) under the mask:
+    # the dropped peers' EF residuals bitwise (their corrected buckets), the
+    # rest within the mixed plan's tolerance (cuBLAS and the CPU reduce the
+    # products in other orders)
+    pw_ts = TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.02,
+                            compressor=CompressorConfig(method="powersgd", rank=4))
+    pw_ef = [heavy(PEERS * m, 1e-4).reshape(PEERS, m)
+             for m in kcodecs.bucket_state_sizes(pw_ts.compressor, bp.sizes)]
+    (pmean, pres, _, _), (pmean_cpu, pres_cpu, _, _), counts = card_and_cpu_step(
+        pw_ts, mleaves, pw_ef, mkey, live=elastic_live)
+    want = counts_of(K1=3 * PEERS, K11=3 * PEERS)
+    check(counts == want, f"elastic powersgd: launches {counts}, expected {want}")
+    pcorr = [[g + e[p][:g.numel()] for g, e in zip(bucket_concat([x[p] for x in mleaves], bp),
+                                                    pw_ef)] for p in range(PEERS)]
+    for b in range(nb):
+        for p in dead:
+            check(torch.equal(pres[b][p][:bp.sizes[b]], pcorr[p][b]),
+                  f"elastic powersgd: dropped peer {p}'s EF residual of bucket {b}")
+    pw_err = 0.0
+    for got, ref_ in zip(list(pres) + list(pmean), list(pres_cpu) + list(pmean_cpu)):
+        d = torch.abs(got.cpu() - ref_)
+        scale = float(ref_.abs().max())
+        check(bool((d <= 1e-5 * torch.abs(ref_) + 1e-5 * scale).all()),
+              f"elastic powersgd: beyond tolerance (max {float(d.max())} of {scale})")
+        pw_err = max(pw_err, float(d.max()) / max(scale, 1e-30))
+    print(f"[elastic] faithful powersgd under the mask: launches {json.dumps(counts)}; dropped "
+          f"peers' EF residuals bitwise, means and EF rows within rtol 1e-5 (max abs err / max "
+          f"magnitude {pw_err:.3g})")
+
+    # the straggler pin: a dropped peer's gradient times -3.7 leaves every
+    # mean bit as it was (its encode runs, its wire is zeroed); EF off
+    def bits_equal(xs, ys) -> bool:
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(xs, ys))
+
+    poked = [x.clone() for x in mleaves]
+    for x in poked:
+        x[5] *= -3.7
+    for sync in ("faithful", "two_phase"):
+        st_ts = TrainStepConfig(sync=sync, bucket_mb=0.02,
+                                compressor=CompressorConfig(method="tnqsgd", bits=3))
+        a = reference_sync_state(st_ts, mleaves, (PEERS,), mkey, live=elastic_live)[0]
+        b = reference_sync_state(st_ts, poked, (PEERS,), mkey, live=elastic_live)[0]
+        check(bits_equal(a, b), f"straggler pin, {sync}: a dropped peer's gradient moved the mean")
+    print("[elastic] straggler pin: peer 5's gradient times -3.7 leaves the faithful and "
+          "two_phase means bitwise unchanged")
+
+    # solo survivor: with peer 0 alone live the faithful mean is its own
+    # decoded wire (the zero-filled mean over 8, times 8), bit for bit
+    solo = live_mask(solo_survivor(PEERS).elastic(), 0, PEERS, dev)
+    so_ts = TrainStepConfig(sync="faithful", bucket_mb=0.02,
+                            compressor=CompressorConfig(method="tnqsgd", bits=3))
+    smeans = bucket_concat(reference_sync_state(so_ts, mleaves, (PEERS,), mkey, live=solo)[0], bp)
+    codec = kcodecs.get_codec("tnqsgd")
+    k0 = prng.fold_in(mkey, 0)
+    for b, g in enumerate(bucket_concat([x[0] for x in mleaves], bp)):
+        own = codec.encode_residual(so_ts.compressor, g, codec.plan(so_ts.compressor, g, None),
+                                    prng.fold_in(k0, b))[0]
+        check(torch.equal(smeans[b], codec.decode_reduce(so_ts.compressor, own[None], g.numel())),
+              f"solo survivor: bucket {b} mean is not the survivor's decoded wire")
+    print(f"[elastic] solo survivor {solo.tolist()}: every bucket's mean bitwise the survivor's "
+          f"own decoded wire")
+
+    # one metrics step, faithful tnqsgd with EF, with and without the mask,
+    # card against CPU with the plans (the metrics' own replans too)
+    # replayed: the geometry, alpha, clip_frac, ef_norm and realized_mse
+    # bitwise (the squares added in a fixed pairwise tree); predicted_mse
+    # within PRED_CARD_RTOL (each device bins by its own log, fact F8, and
+    # the tail fit is ill-conditioned, fact F3)
+    me_ts = TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.02,
+                            metrics_compression=True,
+                            compressor=CompressorConfig(method="tnqsgd", bits=3))
+    pred_err = 0.0
+    for live in (None, elastic_live):
+        (_, _, _, cm_card), (_, _, _, cm_cpu), counts = card_and_cpu_step(me_ts, mleaves, fef, mkey,
+                                                                           live=live)
+        want = counts_of(K1=3 * PEERS, K2=3 * PEERS, K4=3)
+        check(counts == want, f"metrics step: launches {counts}, expected {want}")
+        for f in ("bits", "rank", "wire_bytes", "alpha", "clip_frac", "ef_norm", "realized_mse"):
+            a, c = getattr(cm_card, f).cpu(), getattr(cm_cpu, f)
+            check(a.shape == (PEERS, nb) and torch.equal(a, c),
+                  f"metrics step ({'masked' if live is not None else 'all live'}): {f} differs")
+        a, c = cm_card.predicted_mse.cpu(), cm_cpu.predicted_mse
+        rel = float((torch.abs(a - c) / torch.abs(c)).max())
+        check(rel <= PRED_CARD_RTOL, f"metrics step: predicted_mse rel err {rel} > {PRED_CARD_RTOL}")
+        pred_err = max(pred_err, rel)
+        if live is not None:
+            # a dropped peer's realized error is its corrected bucket's mean square
+            for p in dead:
+                for b in range(nb):
+                    whole = metrics._sum_sq(corrected[p][b]) / torch.tensor(float(bp.sizes[b]),
+                                                                            device=dev)
+                    check(torch.equal(cm_card.realized_mse[p, b], whole),
+                          f"metrics: dropped peer {p}'s realized error of bucket {b}")
+            print("[metrics] (8, B) table under the mask: " + json.dumps(
+                {f: getattr(cm_card, f).cpu().tolist() for f in cm_card._fields}))
+    print(f"[metrics] faithful tnqsgd, EF on, with and without the mask: launches "
+          f"{json.dumps(counts)}; bits, rank, wire_bytes, alpha, clip_frac, ef_norm, realized_mse "
+          f"bitwise card vs CPU, predicted_mse max rel err {pred_err:.3g}")
+    print(f"[elastic] masked, straggler, solo-survivor and metrics checks: "
+          f"{time.time() - t_elastic:.1f} s")
 
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:
@@ -1682,6 +1891,7 @@ def main() -> int:
     }
     print("[time] " + json.dumps({"per_tensor_round_breakdown_ms": tbreak, "card": card}))
 
+    print(f"[time] whole script {time.time() - t_script:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

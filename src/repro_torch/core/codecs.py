@@ -122,6 +122,9 @@ class Codec:
     chunkable: bool = True
     #: the method's fidelity knob is ``cfg.rank`` (else ``cfg.bits``)
     rank_based: bool = False
+    #: wire bits per element when fixed by the codec, not ``cfg.bits``
+    #: (read by ``obs.metrics``)
+    fixed_wire_bits: int | None = None
 
     def plan(self, cfg: CompressorConfig, flat: torch.Tensor, stat):
         """Data-dependent per-bucket plan; opaque to callers."""
@@ -255,6 +258,7 @@ class Fp16Codec(Codec):
     """
 
     name = "fp16"
+    fixed_wire_bits = 16
 
     def wire_words(self, cfg: CompressorConfig, n: int) -> int:
         return (n + 1) // 2

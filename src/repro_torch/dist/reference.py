@@ -22,14 +22,25 @@ An EF row is the residual followed by the codec's aux tail (``powersgd``:
 the warm-started Q factor; none for the quantizers).  With ``tstate`` the
 peers' telemetry rows fold in the statistics the sync computed.
 
+Elastic participation (``live``, an (n,) float32 0/1 mask from
+``elastic.live_mask``): every ``live=`` branch applies the mesh bodies' own
+helpers (``sc._mask_wire``, ``sc._mask_resid``, ``sc._live_scale``) to the
+same operands.  A dropped peer still encodes, but its wire is zeroed and
+its EF row keeps its whole corrected bucket; the zero-filled mean is
+renormalized by ``n / max(n_live, 1)``.  two_phase masks phase 1 and
+scales the chunk means, and its phase 2 runs unmasked; hierarchical
+gives pod p row p of ``live.reshape(n_pod, nd)`` and the cross-pod stage
+the pods' max, so a fully dead pod drops out and pods weigh equally.
+With ``ts.metrics_compression`` the replay also returns every peer's
+``obs.metrics.CompressionMetrics``.
+
 The per-leaf codec (``bucket_mb=0``, :func:`reference_sync`): every leaf
 is synced on its own with the sort-based plan of each tensor it encodes
 (``faithful_ring_mean``, ``two_phase_mean``, ``hierarchical_mean``), under
 ``fold_in(key, leaf)``; no error feedback, no telemetry, no live mask.
 
 On the card every step runs the port's CUDA kernels; on the CPU their
-plain versions.  Still to port: elastic live masks (ROADMAP Queue 1 item
-2) and compression metrics (item 3).
+plain versions.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from repro_torch.core import compressors, prng
 from repro_torch.core.codecs import (bucket_cfgs, decode_reduce, decode_rows, encode_pack,
                                      get_codec, size_adaptive_plan)
 from repro_torch.core.compressors import CompressorConfig, plan
+from repro_torch.obs import metrics as obs_metrics
 
 from . import sharded_codec as sc
 
@@ -150,14 +162,17 @@ def hierarchical_mean(cfg: CompressorConfig, stacked: torch.Tensor, n_pod: int,
 def bucketed_faithful_ring_mean(
     cfg: CompressorConfig, buckets: list, key,
     bits: Sequence | None = None, stats: list | None = None, aux: list | None = None,
+    live: torch.Tensor | None = None,
 ) -> tuple[list, list]:
     """Faithful ring mean over stacked (n, m_b) buckets.
 
     Peer i encodes bucket b under ``fold_in(fold_in(key_i, i), b)`` (the
     per-peer fold only when n > 1); ``aux[b]`` (optional) stacks the
-    peers' codec aux tails (n, extra_b).  Returns ``(mean_buckets,
-    state_stacked)`` with ``state_stacked[b]`` the (n, m_b + extra_b)
-    per-peer EF rows (residual, then the new aux).
+    peers' codec aux tails (n, extra_b).  With ``live``, each dropped
+    peer's wire is zeroed and its residual is its corrected bucket, and
+    the mean is renormalized over the live peers.  Returns
+    ``(mean_buckets, state_stacked)`` with ``state_stacked[b]`` the (n,
+    m_b + extra_b) per-peer EF rows (residual, then the new aux).
     """
     n = buckets[0].shape[0]
     keys = _in_keys(key, n)
@@ -165,6 +180,7 @@ def bucketed_faithful_ring_mean(
     cfgs = bucket_cfgs(cfg, len(buckets), bits)
     codecs = [get_codec(c.method) for c in cfgs]
     stats = _peer_stats(buckets, stats)
+    scale = None if live is None else sc._live_scale(live, n)
     means, states = [], []
     for b, sb in enumerate(buckets):
         wires, rows = [], []
@@ -173,16 +189,21 @@ def bucketed_faithful_ring_mean(
             pln = codecs[b].plan(cfgs[b], flat, stats[i][b])
             w, r, a = codecs[b].encode_residual(cfgs[b], flat, pln, prng.fold_in(keys[i], b),
                                                 _peer_aux(aux, b, i))
+            if live is not None:
+                w = sc._mask_wire(w, live[i])
+                r = sc._mask_resid(r, flat, live[i])
             wires.append(w)
             rows.append(_state_row(r, a))
         states.append(torch.stack(rows))
-        means.append(codecs[b].decode_reduce(cfgs[b], torch.stack(wires), sb.shape[1]))
+        mean_b = codecs[b].decode_reduce(cfgs[b], torch.stack(wires), sb.shape[1])
+        means.append(mean_b if scale is None else mean_b * scale)
     return means, states
 
 
 def bucketed_two_phase_mean(
     cfg: CompressorConfig, buckets: list, key,
     bits: Sequence | None = None, stats: list | None = None, aux: list | None = None,
+    live: torch.Tensor | None = None,
 ) -> tuple[list, list]:
     """Two-phase mean over stacked (n, m_b) buckets.
 
@@ -192,18 +213,24 @@ def bucketed_two_phase_mean(
     mean chunk's own statistics.  A bucket whose codec is not chunkable
     is encoded whole with its aux tail (``aux`` as in
     :func:`bucketed_faithful_ring_mean`) and every peer's wire decoded in
-    phase 1, with no phase 2.  Returns ``(mean_buckets, state_stacked)``;
-    the EF rows are the phase-1 residuals and aux tails.
+    phase 1, with no phase 2.  With ``live``, phase 1 masks the dropped
+    peers' wires and residuals and the chunk means (or a non-chunkable
+    codec's full mean) are renormalized; phase 2, the relay of means
+    already averaged, runs unmasked.  Returns ``(mean_buckets,
+    state_stacked)``; the EF rows are the phase-1 residuals and aux tails.
     """
     n = buckets[0].shape[0]
     cfgs = bucket_cfgs(cfg, len(buckets), bits)
     codecs = [get_codec(c.method) for c in cfgs]
     if n == 1:
         flats = [sb[0].to(torch.float32) for sb in buckets]
-        return flats, [_state_row(torch.zeros_like(f), _peer_aux(aux, b, 0))[None]
+        return flats, [_state_row(torch.zeros_like(f) if live is None
+                                  else sc._mask_resid(torch.zeros_like(f), f, live[0]),
+                                  _peer_aux(aux, b, 0))[None]
                        for b, f in enumerate(flats)]
     keys = [prng.split(prng.fold_in(k, j)) for j, k in enumerate(_in_keys(key, n))]
     stats = _peer_stats(buckets, stats)
+    scale = None if live is None else sc._live_scale(live, n)
     means, states = [], []
     for b, sb in enumerate(buckets):
         size = sb.shape[1]
@@ -217,17 +244,23 @@ def bucketed_two_phase_mean(
                 a = None
             else:
                 w, r, a = codecs[b].encode_residual(cfgs[b], flat, pln, ki, _peer_aux(aux, b, i))
+            if live is not None:
+                w = sc._mask_wire(w, live[i])
+                r = sc._mask_resid(r, flat, live[i])
             wires.append(w)
             rows.append(_state_row(r, a))
         states.append(torch.stack(rows))
         if not codecs[b].chunkable:
             # the full wire in every all-to-all row is an all-gather: every
             # peer decodes the same stacked wires into the full mean
-            means.append(codecs[b].decode_reduce(cfgs[b], torch.stack(wires), size))
+            fm = codecs[b].decode_reduce(cfgs[b], torch.stack(wires), size)
+            means.append(fm if scale is None else fm * scale)
             continue
         mc = codecs[b].chunk_elems(cfgs[b], size, n)
         chunks = [codecs[b].decode_reduce(cfgs[b], torch.stack([w[j] for w in wires]), mc)
                   for j in range(n)]
+        if scale is not None:
+            chunks = [ch * scale for ch in chunks]
         wires2 = [codecs[b].encode(cfgs[b], chunks[j], codecs[b].plan(cfgs[b], chunks[j], None),
                                    prng.fold_in(keys[j][1], b))
                   for j in range(n)]
@@ -239,6 +272,7 @@ def bucketed_two_phase_mean(
 def bucketed_hierarchical_mean(
     cfg: CompressorConfig, buckets: list, n_pod: int, key: torch.Tensor,
     bits: Sequence | None = None, stats: list | None = None, aux: list | None = None,
+    live: torch.Tensor | None = None,
 ) -> tuple[list, list]:
     """Two-phase inside each pod, faithful across the pod means.
 
@@ -247,22 +281,28 @@ def bucketed_hierarchical_mean(
     cross-pod faithful stage gets ``k2`` and plans from the pod means' own
     statistics, with no codec aux.  The EF rows (residuals and aux tails)
     are the intra-pod stage's: pod p gets the aux rows of its own peers.
+    With ``live``, pod p's stage takes row p of ``live.reshape(n_pod, nd)``
+    and the cross-pod stage the pods' max: a pod is live if any of its
+    peers is, so a fully dead pod drops out and pods weigh equally.
     """
     n = buckets[0].shape[0]
     nd = n // n_pod
     k1, k2 = prng.split(key)
     stats = _peer_stats(buckets, stats)
+    mat = None if live is None else live.reshape(n_pod, nd)
     pod_means, pod_resids = [], []
     for p in range(n_pod):
         in_keys = [prng.fold_in(k1, p * nd + d) for d in range(nd)]
         aux_p = None if aux is None else [a if a is None else a[p * nd:(p + 1) * nd]
                                           for a in aux]
         m, r = bucketed_two_phase_mean(cfg, [sb[p * nd:(p + 1) * nd] for sb in buckets],
-                                       in_keys, bits, stats[p * nd:(p + 1) * nd], aux_p)
+                                       in_keys, bits, stats[p * nd:(p + 1) * nd], aux_p,
+                                       None if mat is None else mat[p])
         pod_means.append(m)
         pod_resids.append(r)
     stacked = [torch.stack([pod_means[p][b] for p in range(n_pod)]) for b in range(len(buckets))]
-    means, _ = bucketed_faithful_ring_mean(cfg, stacked, k2, bits)
+    pod_live = None if mat is None else torch.amax(mat, dim=1)
+    means, _ = bucketed_faithful_ring_mean(cfg, stacked, k2, bits, live=pod_live)
     resids = [torch.cat([pod_resids[p][b] for p in range(n_pod)]) for b in range(len(buckets))]
     return means, resids
 
@@ -276,18 +316,16 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     sizes (their product is n); ``ef``: a list of stacked (n, m_b)
     bucket-resident residuals, or None; ``tstate``: a per-peer stacked
     :class:`~repro_torch.adaptive.telemetry.TelemetryState` (leaves with a
-    leading axis n), or None.  Returns ``(mean_leaves, resid_stacked |
-    None, new_tstate | None, None)``; the last slot is the JAX package's
-    compression metrics.  The telemetry rows fold in the statistics of
-    the corrected buckets the sync computes (K1 with EF, else K10), with
-    the decay ``ts.adaptive.ema``.
+    leading axis n), or None; ``live``: an (n,) float32 0/1 live mask, or
+    None (everyone live).  Returns ``(mean_leaves, resid_stacked | None,
+    new_tstate | None, metrics | None)``.  The telemetry rows fold in the
+    statistics of the corrected buckets the sync computes (K1 with EF,
+    else K10), with the decay ``ts.adaptive.ema``.  ``metrics`` (under
+    ``ts.metrics_compression``) is every peer's
+    :class:`~repro_torch.obs.metrics.CompressionMetrics`, leaves stacked
+    (n, n_buckets): peer j's from its corrected buckets, statistics,
+    masked residual rows and incoming EF rows.
     """
-    if live is not None:
-        raise NotImplementedError("elastic live masks are not ported yet (ROADMAP Queue 1 "
-                                  "item 2)")
-    if ts.metrics_compression:
-        raise NotImplementedError("compression metrics are not ported yet (ROADMAP Queue 1 "
-                                  "item 3)")
     cfg = ts.compressor
     n = 1
     for s in dp_sizes:
@@ -299,8 +337,8 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
     compressed = not (ts.sync == "dsgd" or cfg.method == "dsgd")
     bits = size_adaptive_plan(cfg, ts.bits_plan, bp.sizes, ts.fp16_threshold)
     # split each EF row into the residual and the codec's aux tail
-    extras = [get_codec(c.method).state_extra(c, m)
-              for c, m in zip(bucket_cfgs(cfg, bp.n_buckets, bits), bp.sizes)]
+    cfgs = bucket_cfgs(cfg, bp.n_buckets, bits)
+    extras = [get_codec(c.method).state_extra(c, m) for c, m in zip(cfgs, bp.sizes)]
     aux = None
     if ef is not None and any(extras):
         aux = [ef[b][:, bp.sizes[b]:] if x else None for b, x in enumerate(extras)]
@@ -324,16 +362,40 @@ def reference_sync_state(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.T
         new_t = telemetry.stack_rows(rows)
     buckets = [torch.stack([per_peer[j][b] for j in range(n)]) for b in range(bp.n_buckets)]
     if not compressed:
-        means, resids = [torch.mean(sb, dim=0) for sb in buckets], None
+        resids = None
+        if live is None:
+            means = [torch.mean(sb, dim=0) for sb in buckets]
+        else:
+            # jnp.mean's bits: the masked peers added in order, times the
+            # float32 1/n, then the live renormalization
+            scale = sc._live_scale(live, n)
+            means = []
+            for sb in buckets:
+                masked = sb * live[:, None]
+                acc = masked[0]
+                for row in masked[1:]:
+                    acc = acc + row
+                means.append(acc * (1.0 / n) * scale)
     elif ts.sync == "faithful":
-        means, resids = bucketed_faithful_ring_mean(cfg, buckets, key, bits, stats, aux)
+        means, resids = bucketed_faithful_ring_mean(cfg, buckets, key, bits, stats, aux, live)
     elif ts.sync == "two_phase" or len(dp_sizes) == 1:
-        means, resids = bucketed_two_phase_mean(cfg, buckets, key, bits, stats, aux)
+        means, resids = bucketed_two_phase_mean(cfg, buckets, key, bits, stats, aux, live)
     else:
-        means, resids = bucketed_hierarchical_mean(cfg, buckets, n_pod, key, bits, stats, aux)
+        means, resids = bucketed_hierarchical_mean(cfg, buckets, n_pod, key, bits, stats, aux,
+                                                   live)
+    cm = None
+    if ts.metrics_compression:
+        rows = []
+        for j in range(n):
+            sums, static = obs_metrics.local_sums(
+                cfgs, per_peer[j], stats[j] if stats is not None else None,
+                None if resids is None else [r[j] for r in resids],
+                None if ef is None else [e[j] for e in ef], compressed)
+            rows.append(obs_metrics.finalize(sums, static, 1))
+        cm = obs_metrics.CompressionMetrics(*(torch.stack(fs) for fs in zip(*rows)))
     if not ts.error_feedback:
         resids = None
-    return compressors.bucket_split(means, bp, shapes), resids, new_t, None
+    return compressors.bucket_split(means, bp, shapes), resids, new_t, cm
 
 
 def reference_sync(ts, stacked_leaves: list, dp_sizes: tuple, key: torch.Tensor,

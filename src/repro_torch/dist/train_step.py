@@ -1,14 +1,14 @@
 """Per-step gradient-sync configuration — the fields of
 ``repro.dist.train_step.TrainStepConfig`` that the reference sync reads,
-with the JAX package's checks.  ``streamed``, ``metrics_gnorm`` and
-``elastic`` come with the mesh train step, elastic participation and the
-metrics (ROADMAP Queue 1 items 1–3)."""
+with the JAX package's checks.  ``streamed`` and ``metrics_gnorm`` come
+with the mesh train step (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.adaptive.controller import AdaptiveConfig
 from repro_torch.core.compressors import CompressorConfig
+from repro_torch.elastic.schedule import ElasticConfig
 
 SYNC_MODES = ("dsgd", "two_phase", "hierarchical", "faithful")
 
@@ -22,8 +22,12 @@ class TrainStepConfig:
     (``dist.reference.reference_sync_state(tstate=...)``, decay
     ``adaptive.ema``); ``bits_plan`` gives each bucket its own width;
     buckets of at most ``fp16_threshold`` elements ship raw fp16 (0 =
-    off).  ``bucket_mb=0`` selects the per-leaf codec, which takes none of
-    these."""
+    off); ``metrics_compression`` makes the sync return every peer's
+    ``obs.metrics.CompressionMetrics``; ``elastic`` is the deterministic
+    partial-participation schedule whose per-step live mask
+    (``elastic.live_mask``) the sync renormalizes the peer mean over,
+    dropped peers' EF rows accumulating.  ``bucket_mb=0`` selects the
+    per-leaf codec, which takes none of these."""
 
     sync: str = "dsgd"
     compressor: CompressorConfig = dataclasses.field(default_factory=CompressorConfig)
@@ -32,6 +36,7 @@ class TrainStepConfig:
     adaptive: AdaptiveConfig | None = None
     bits_plan: tuple[int, ...] | None = None
     metrics_compression: bool = False
+    elastic: ElasticConfig | None = None
     fp16_threshold: int = 0
 
     def __post_init__(self):
@@ -51,6 +56,8 @@ class TrainStepConfig:
                 raise ValueError("adaptive telemetry requires the bucketed codec (bucket_mb > 0)")
         if self.metrics_compression and self.bucket_mb <= 0:
             raise ValueError("metrics_compression requires the bucketed codec (bucket_mb > 0)")
+        if self.elastic is not None and self.bucket_mb <= 0:
+            raise ValueError("elastic sync requires the bucketed codec (bucket_mb > 0)")
         if self.fp16_threshold < 0:
             raise ValueError("fp16_threshold must be >= 0 (0 disables the tier)")
         if self.fp16_threshold > 0 and self.bucket_mb <= 0:

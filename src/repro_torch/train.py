@@ -30,6 +30,7 @@ from repro_torch.core.error_feedback import compress_with_feedback, init_error
 from repro_torch.data.synthetic import client_batches, make_templates, shapes_batch
 from repro_torch.dist.reference import reference_sync, reference_sync_state
 from repro_torch.dist.train_step import TrainStepConfig
+from repro_torch.elastic.schedule import ElasticConfig, live_mask
 from repro_torch.models.smallnet import (accuracy, init_smallnet, smallnet_loss, tree_leaves,
                                          tree_unflatten)
 from repro_torch.optim.optimizers import momentum_sgd
@@ -80,7 +81,7 @@ def client_grads(params: dict, imgs: torch.Tensor, labels: torch.Tensor):
 def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
                  error_feedback: bool = False, steps: int = 30, n_clients: int = 8,
                  batch: int = 32, device="cuda", dp_sizes: tuple | None = None,
-                 bucket_mb: float = 4.0) -> list[float]:
+                 bucket_mb: float = 4.0, elastic: ElasticConfig | None = None) -> list[float]:
     """Fixed-seed synced training; returns the per-step mean client loss.
 
     ``dp_sizes`` lays the clients out as (pods…, data), row-major, for the
@@ -88,7 +89,9 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     runs at ``CompressorConfig``'s rank 4, and its EF rows also carry the
     warm-started Q factor (``bucket_state_sizes``).  ``bucket_mb`` is
     ``TrainStepConfig``'s: 0 syncs every leaf on its own (the per-leaf
-    codec, no error feedback).
+    codec, no error feedback).  ``elastic`` drops peers by its schedule:
+    step i syncs under ``live_mask(elastic, i, n_clients)``, as the JAX
+    package's golden dropout run does.
 
     Seeds follow the JAX run: ``key(0)`` for the init, ``key(42)`` for the
     class templates and ``fold_in(key(0x5EED), i)`` for step i's sync.  TF32 is
@@ -103,7 +106,7 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
         raise ValueError(f"dp_sizes {dp_sizes} do not multiply to n_clients={n_clients}")
     _float32_and_deterministic()
     ts = TrainStepConfig(sync=sync, error_feedback=error_feedback, bucket_mb=bucket_mb,
-                         compressor=CompressorConfig(method=method, bits=bits))
+                         elastic=elastic, compressor=CompressorConfig(method=method, bits=bits))
     templates = make_templates(prng.key(42), device=device)
     params = init_smallnet(prng.key(0), device=device)
     opt = momentum_sgd(lr=0.01, momentum=0.9, weight_decay=5e-4)
@@ -118,10 +121,11 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
         imgs, labels = client_batches(templates, i, n_clients, batch)
         losses, stacked = client_grads(params, imgs, labels)
         key = prng.fold_in(prng.key(_KEY_SEED), i)
+        live = None if ts.elastic is None else live_mask(ts.elastic, i, n_clients, device)
         if error_feedback:
-            mean, ef, _, _ = reference_sync_state(ts, stacked, dp_sizes, key, ef=ef)
+            mean, ef, _, _ = reference_sync_state(ts, stacked, dp_sizes, key, ef=ef, live=live)
         else:
-            mean = reference_sync(ts, stacked, dp_sizes, key)
+            mean = reference_sync(ts, stacked, dp_sizes, key, live=live)
         params, state = opt.update(params, tree_unflatten(params, mean), state)
         hist.append(float(torch.mean(losses)))
     return hist

@@ -775,3 +775,166 @@ def test_per_leaf_training_runs_through_the_kernels(cuda):
     assert counts["decode.codebook_decode_reduce_3d"] == 64
     assert counts["decode.codebook_decode_rows_3d"] == 8
     assert sum(counts.values()) == 648
+
+
+# -- elastic participation and the compression metrics -----------------------
+
+DROPOUT_LIVE = [4, 7, 7, 8, 6, 6, 4, 6, 6, 5, 8, 6, 7, 7, 5, 5, 7, 8, 6, 5, 5, 7, 6, 6, 8, 7, 6,
+                7, 7, 5]
+SMALLNET_SHAPES = [(16,), (3, 3, 1, 16), (32,), (3, 3, 16, 32), (128,), (1568, 128), (10,),
+                   (128, 10)]
+# pod 0 of a (2, 4) layout and peer 5 dropped
+ELASTIC_LIVE = [0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 1.0, 1.0]
+
+
+def test_dropout_golden_on_the_card(cuda):
+    """The JAX package's 20%-dropout EF golden (faithful tnqsgd, 3 bits):
+    0.0938 ± 0.07 after 30 steps from 6.4895, bit for bit twice, every peer
+    encoding each step (K1 8, K2 8, K4 1)."""
+    from repro_torch.elastic import ElasticConfig, live_mask
+    from repro_torch.train import train_synced
+
+    cfg = ElasticConfig(rate=0.2, seed=0x17E)
+    assert [int(live_mask(cfg, i, 8, cuda).sum()) for i in range(30)] == DROPOUT_LIVE
+    hists = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        hists.append(train_synced(error_feedback=True, steps=30, device="cuda", elastic=cfg))
+        counts = kernels.launch_counts()
+        assert counts["encode_fused.ef_correct_stats_2d"] == 240
+        assert counts["encode_fused.codebook_encode_pack_resid_2d"] == 240
+        assert counts["decode.codebook_decode_reduce_3d"] == 30 and sum(counts.values()) == 510
+    hist = hists[0]
+    assert hists[1] == hist
+    assert abs(hist[0] - 6.4895) <= 1e-3 and abs(hist[-1] - 0.0938) <= 0.07, hist
+    assert hist[-1] < hist[0] - 5.0
+
+
+def _card_and_cpu(run):
+    """``run("cuda")`` with its plans recorded, then ``run("cpu")`` with
+    them replayed in order."""
+    from repro_torch.core import codecs
+    from repro_torch.core.quantizers import QuantMeta
+
+    orig, recorded = codecs.QuantizerCodec.plan, []
+
+    def recording(self, cfg, flat, stat):
+        recorded.append(orig(self, cfg, flat, stat))
+        return recorded[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(codecs.QuantizerCodec, "plan", recording)
+        card = run("cuda")
+    replay = iter(recorded)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(codecs.QuantizerCodec, "plan",
+                   lambda self, cfg, flat, stat: QuantMeta(*(x.cpu() for x in next(replay))))
+        cpu = run("cpu")
+    assert next(replay, None) is None
+    return card, cpu
+
+
+def _elastic_inputs(cuda, seed: int, method: str = "tnqsgd"):
+    from repro_torch.core import codecs
+    from repro_torch.core.compressors import CompressorConfig, plan_buckets
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    leaves = [_heavy(gen, 8 * math.prod(s), cuda).reshape(8, *s) for s in SMALLNET_SHAPES]
+    bp = plan_buckets([math.prod(s) for s in SMALLNET_SHAPES], int(0.02 * (1 << 20) / 4))
+    sizes = codecs.bucket_state_sizes(CompressorConfig(method=method, rank=4), bp.sizes)
+    ef = [_heavy(gen, 8 * m, cuda, 1e-4).reshape(8, m) for m in sizes]
+    return leaves, ef, bp
+
+
+@pytest.mark.parametrize("case", ["faithful", "two_phase", "hierarchical", "fp16_tier",
+                                  "powersgd"])
+def test_elastic_step_card_against_cpu(cuda, case):
+    """One masked step on the card and on the CPU with the card's plans
+    replayed: means and EF rows bitwise (powersgd's within rtol 1e-5, the
+    dropped peers' residuals bitwise), each dropped peer's EF row its
+    corrected bucket."""
+    from repro_torch.core.compressors import CompressorConfig, bucket_concat
+    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.dist.train_step import TrainStepConfig
+
+    method = "powersgd" if case == "powersgd" else "tnqsgd"
+    sync = case if case in ("two_phase", "hierarchical") else "faithful"
+    dp = (2, 4) if sync == "hierarchical" else (8,)
+    ts = TrainStepConfig(sync=sync, error_feedback=True, bucket_mb=0.02,
+                         fp16_threshold=5000 if case == "fp16_tier" else 0,
+                         compressor=CompressorConfig(method=method, bits=3, rank=4))
+    leaves, ef, bp = _elastic_inputs(cuda, 21, method)
+    live = torch.tensor(ELASTIC_LIVE, device=cuda)
+    (mean, rows, _, _), (mean_cpu, rows_cpu, _, _) = _card_and_cpu(
+        lambda dev: reference_sync_state(ts, [x.to(dev) for x in leaves], dp,
+                                         prng.fold_in(prng.key(0x5EED), 0),
+                                         ef=[e.to(dev) for e in ef], live=live.to(dev)))
+    pairs = list(zip(mean, mean_cpu)) + list(zip(rows, rows_cpu))
+    for got, want in pairs:
+        if method == "powersgd":
+            tol = 1e-5 * torch.abs(want) + 1e-5 * float(want.abs().max())
+            assert bool((torch.abs(got.cpu() - want) <= tol).all())
+        else:
+            assert torch.equal(got.cpu(), want)
+    for p in (0, 1, 2, 3, 5):
+        for b, g in enumerate(bucket_concat([x[p] for x in leaves], bp)):
+            assert torch.equal(rows[b][p][:g.numel()], g + ef[b][p][:g.numel()]), (p, b)
+
+
+def test_straggler_pin_and_solo_survivor_on_the_card(cuda):
+    """A dropped peer's gradient times -3.7 leaves the faithful and
+    two_phase means bit for bit; with one peer live the faithful mean is
+    its own decoded wire."""
+    from repro_torch.core import codecs
+    from repro_torch.core.compressors import CompressorConfig, bucket_concat
+    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.dist.train_step import TrainStepConfig
+    from repro_torch.elastic import live_mask, solo_survivor
+
+    leaves, _, bp = _elastic_inputs(cuda, 22)
+    key, live = prng.fold_in(prng.key(0x5EED), 0), torch.tensor(ELASTIC_LIVE, device=cuda)
+    poked = [x.clone() for x in leaves]
+    for x in poked:
+        x[5] *= -3.7
+    for sync in ("faithful", "two_phase"):
+        ts = TrainStepConfig(sync=sync, bucket_mb=0.02, compressor=CompressorConfig(bits=3,
+                                                                                    method="tnqsgd"))
+        a = reference_sync_state(ts, leaves, (8,), key, live=live)[0]
+        b = reference_sync_state(ts, poked, (8,), key, live=live)[0]
+        assert all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+    ts = TrainStepConfig(sync="faithful", bucket_mb=0.02, compressor=CompressorConfig(bits=3,
+                                                                                      method="tnqsgd"))
+    solo = live_mask(solo_survivor(8).elastic(), 0, 8, cuda)
+    means = bucket_concat(reference_sync_state(ts, leaves, (8,), key, live=solo)[0], bp)
+    codec = codecs.get_codec("tnqsgd")
+    for b, g in enumerate(bucket_concat([x[0] for x in leaves], bp)):
+        wire = codec.encode_residual(ts.compressor, g, codec.plan(ts.compressor, g, None),
+                                     prng.fold_in(prng.fold_in(key, 0), b))[0]
+        assert torch.equal(means[b], codec.decode_reduce(ts.compressor, wire[None], g.numel()))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_metrics_step_card_against_cpu(cuda, masked):
+    """Faithful tnqsgd with EF and ``metrics_compression``, the plans
+    replayed: every metric but ``predicted_mse`` bitwise, that within rtol
+    1e-3 (each device bins by its own log)."""
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.dist.train_step import TrainStepConfig
+
+    ts = TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.02,
+                         metrics_compression=True, compressor=CompressorConfig(bits=3))
+    leaves, ef, bp = _elastic_inputs(cuda, 23)
+    live = torch.tensor(ELASTIC_LIVE, device=cuda) if masked else None
+    (_, _, _, cm), (_, _, _, cm_cpu) = _card_and_cpu(
+        lambda dev: reference_sync_state(ts, [x.to(dev) for x in leaves], (8,),
+                                         prng.fold_in(prng.key(0x5EED), 0),
+                                         ef=[e.to(dev) for e in ef],
+                                         live=None if live is None else live.to(dev)))
+    for f in cm._fields:
+        got, want = getattr(cm, f).cpu(), getattr(cm_cpu, f)
+        assert got.shape == (8, bp.n_buckets), f
+        if f == "predicted_mse":
+            assert bool((torch.abs(got - want) <= 1e-3 * torch.abs(want)).all())
+        else:
+            assert torch.equal(got, want), f
