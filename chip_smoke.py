@@ -81,6 +81,18 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    mean bitwise the survivor's own decoded wire); and one step with
    ``metrics_compression``, with and without the mask, card against CPU
    (every metric bitwise but the predicted E_TQ, within PRED_CARD_RTOL);
+4b. mesh: the sync on ``torch.distributed`` (``dist.train_step.make_sync_fn``
+   over ``dist.compat.Mesh``), 8 ranks spawned on a gloo group, every one
+   on ``cuda:0``: (a) one sync per case (faithful, two_phase (8,) and
+   hierarchical (2, 4) tnqsgd with EF, telemetry and
+   ``metrics_compression``, the same under the mask that drops pod 0 and
+   peer 5, dsgd, faithful powersgd rank 4 with EF, the per-leaf faithful
+   sync), every rank's means bitwise every other's and, with its EF,
+   telemetry and metrics rows, bitwise its row of the card
+   replay (dsgd within 1e-6), each rank's launches as predicted; (b) the
+   golden faithful tnqsgd run through ``train_synced(mesh=...)``, one
+   client a rank, every rank's history bitwise phase 4's; (c) a synced
+   step's median of 5 a rank and the collectives' share of it;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -103,6 +115,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -178,6 +191,146 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+MESH_RANKS = 8                     # the paper's 8 clients, one gloo rank each
+MESH_TIMEOUT_S = 300               # the mesh phase's ranks must finish by then
+MESH_MASK = [0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 1.0, 1.0]   # pod 0 of (2, 4) and peer 5 down
+
+
+def _mesh_cases() -> dict:
+    """The mesh phase's syncs: label -> (TrainStepConfig, dp_sizes, masked).
+
+    Every compressed bucketed case runs tnqsgd at 3 bits with EF, telemetry
+    and ``metrics_compression`` on; dsgd takes none of EF, telemetry or
+    metrics; the masked cases drop pod 0 of (2, 4) and peer 5 (the
+    schedule only puts the mask in the signature)."""
+    from repro_torch.adaptive.controller import AdaptiveConfig
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.dist.train_step import TrainStepConfig
+    from repro_torch.elastic import ElasticConfig
+
+    tn = CompressorConfig(method="tnqsgd", bits=3)
+    on = dict(error_feedback=True, adaptive=AdaptiveConfig(), metrics_compression=True,
+              compressor=tn)
+    layouts = (("faithful", (MESH_RANKS,)), ("two_phase", (MESH_RANKS,)),
+               ("hierarchical", (2, MESH_RANKS // 2)))
+    cases = {sync: (TrainStepConfig(sync=sync, **on), dp, False) for sync, dp in layouts}
+    cases["dsgd"] = (TrainStepConfig(sync="dsgd", compressor=tn), (MESH_RANKS,), False)
+    for sync, dp in layouts:
+        cases[f"{sync}_masked"] = (TrainStepConfig(sync=sync, elastic=ElasticConfig(rate=0.2),
+                                                   **on), dp, True)
+    cases["faithful_powersgd"] = (TrainStepConfig(
+        sync="faithful", error_feedback=True, compressor=CompressorConfig(method="powersgd",
+                                                                          rank=4)),
+        (MESH_RANKS,), False)
+    cases["per_leaf_faithful"] = (TrainStepConfig(sync="faithful", bucket_mb=0, compressor=tn),
+                                  (MESH_RANKS,), False)
+    return cases
+
+
+def _mesh_rank(rank: int, world: int, init: str, workdir: str, src: str,
+               golden_steps: int) -> None:
+    """One rank of the mesh phase, a spawned process on the gloo group of
+    ``init``: (a) each of :func:`_mesh_cases`'s syncs on the inputs the
+    parent saved, with its launches; (b) the golden run through
+    ``train_synced(mesh=...)``; (c) the synced step's time and its
+    collectives' share.  Writes everything to ``workdir/rank<r>.pt``."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.adaptive.telemetry import init_telemetry
+    from repro_torch.core.codecs import bucket_state_sizes
+    from repro_torch.dist import compat
+    from repro_torch.dist.train_step import make_sync_fn
+    from repro_torch.train import _float32_and_deterministic, resolve_device, train_synced
+
+    torch.set_num_threads(1)
+    _float32_and_deterministic()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        meshes = {(world,): compat.Mesh((world,)), (2, world // 2): compat.Mesh((2, world // 2))}
+        dev = resolve_device("cuda", meshes[(world,)])
+        torch.cuda.set_device(dev)
+        inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=True)
+        leaves = [x[rank].to(dev) for x in inp["leaves"]]
+        key, live = inp["key"], inp["live"].to(dev)
+        out = {"device": str(dev), "cases": {}, "times": {}}
+        prepared = {}
+        for label, (ts, dp, masked) in _mesh_cases().items():
+            sync = make_sync_fn(ts, meshes[dp], leaves)
+            args = [leaves, key]
+            if ts.elastic is not None:
+                args.append(live if masked else torch.ones(world, device=dev))
+            if ts.error_feedback:
+                args.append(tuple(inp["ef"][m][rank].to(dev) for m in bucket_state_sizes(
+                    ts.compressor, [sum(x.numel() for x in leaves)])))
+            if ts.adaptive is not None:
+                args.append(init_telemetry(1, dev))
+            prepared[label] = (sync, args)
+            kernels.reset_launch_counts()
+            res = sync(*args)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            res = list(res) if isinstance(res, tuple) else [res]
+            rec = {"mean": [m.cpu() for m in res.pop(0)], "counts": counts}
+            if ts.error_feedback:
+                rec["ef"] = [e.cpu() for e in res.pop(0)]
+            if ts.adaptive is not None:
+                rec["tstate"] = [f.cpu() for f in res.pop(0)]
+            if ts.metrics_compression:
+                rec["metrics"] = [f.cpu() for f in res.pop(0)]
+            out["cases"][label] = rec
+
+        # (b) the golden run, one client a rank
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        out["golden"] = train_synced(sync="faithful", bits=3, steps=golden_steps,
+                                     n_clients=world, batch=32, device="cuda",
+                                     mesh=meshes[(world,)])
+        torch.cuda.synchronize()
+        out["golden_s"] = time.time() - t0
+        out["golden_counts"] = {k: v for k, v in kernels.launch_counts().items() if v}
+
+        # (c) a synced step's wall time, and the share of it in compat's
+        # collectives (each synchronized on both sides)
+        coll = [0.0]
+        originals = {name: getattr(compat, name)
+                     for name in ("all_gather_stacked", "all_to_all_rows", "psum")}
+
+        def timed(fn):
+            def wrapper(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a)
+                torch.cuda.synchronize()
+                coll[0] += time.perf_counter() - t
+                return r
+            return wrapper
+
+        for name, fn in originals.items():
+            setattr(compat, name, timed(fn))
+        for label in ("faithful", "two_phase", "hierarchical", "dsgd"):
+            sync, args = prepared[label]
+            walls, shares = [], []
+            for _ in range(6):
+                dist.barrier()
+                torch.cuda.synchronize()
+                coll[0] = 0.0
+                t = time.perf_counter()
+                sync(*args)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+                shares.append(coll[0] * 1e3 / walls[-1])
+            out["times"][label] = {"runs_ms": walls[1:], "collective_share": shares[1:]}
+        for name, fn in originals.items():
+            setattr(compat, name, fn)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1332,6 +1485,169 @@ def main() -> int:
           f"bitwise card vs CPU, predicted_mse max rel err {pred_err:.3g}")
     print(f"[elastic] masked, straggler, solo-survivor and metrics checks: "
           f"{time.time() - t_elastic:.1f} s")
+
+    # -- 4b. mesh ---------------------------------------------------------
+    # the mesh sync on torch.distributed: 8 gloo ranks, spawned, every one on
+    # cuda:0 (NCCL takes one card a rank).  (a) one sync per case of
+    # _mesh_cases on inputs made here from the generator: every rank's means
+    # bitwise every other's and, with its EF row, telemetry row and metrics,
+    # bitwise its row of this process's card replay (reference_sync_state;
+    # the per-leaf sync reference_sync); dsgd (gloo owns the order of the
+    # sum) within 1e-6 relative.  Launches a rank, per sync: faithful K1, K2, K4 one each;
+    # two_phase (8,) adds K10 (its mean chunk's plan), K6 and K8;
+    # hierarchical (2, 4) does that inside its pod of 4 and then plans
+    # (K10), encodes (K2) and decodes (K4) the 2 pod means; the masked
+    # syncs launch what the unmasked do (a dropped rank still encodes);
+    # dsgd none; powersgd K1 and K11; the per-leaf sync K6 and K4 once a
+    # leaf (8).  (b) the golden faithful tnqsgd run, one client a rank:
+    # every rank's history bitwise phase 4's faithful_ef_off history, K10,
+    # K2 and K4 once a step.  (c) a synced step's median of 5 a rank.
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch.adaptive import telemetry as ktel
+    from repro_torch.obs import metrics as kmetrics
+
+    t_mesh = time.time()
+    mcases = _mesh_cases()
+    mgen = torch.Generator(device=dev).manual_seed(0x3E5)
+
+    def mheavy(n: int, scale: float) -> torch.Tensor:
+        z = torch.randn(n, generator=mgen, device=dev)
+        return scale * z * torch.exp(torch.randn(n, generator=mgen, device=dev))
+
+    mleaves8 = [mheavy(MESH_RANKS * math.prod(s), 1e-3).reshape(MESH_RANKS, *s)
+                for s in SMALLNET_SHAPES]
+    mstate = {m: mheavy(MESH_RANKS * m, 1e-4).reshape(MESH_RANKS, m)
+              for ts_, _, _ in mcases.values() if ts_.error_feedback
+              for m in kcodecs.bucket_state_sizes(ts_.compressor, [SLICE_N])}
+    mlive = torch.tensor(MESH_MASK, device=dev)
+    mkey8 = prng.fold_in(prng.key(0x5EED), 7)
+    golden_hist = runs["faithful_ef_off"]["hist"]
+    with tempfile.TemporaryDirectory() as wd:
+        torch.save({"leaves": [x.cpu() for x in mleaves8], "key": mkey8, "live": mlive.cpu(),
+                    "ef": {m: e.cpu() for m, e in mstate.items()}},
+                   os.path.join(wd, "inputs.pt"))
+        t_spawn = time.time()
+        ctx = tmp.start_processes(_mesh_rank, args=(MESH_RANKS, f"file://{wd}/rendezvous", wd,
+                                                    str(ROOT / "src"), len(golden_hist)),
+                                  nprocs=MESH_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() - t_spawn > MESH_TIMEOUT_S:
+                    fail(f"mesh ranks still running after {MESH_TIMEOUT_S} s")
+        except Exception as e:  # a rank raised: report its traceback
+            fail(f"a mesh rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks_wall = time.time() - t_spawn
+        mres = [torch.load(os.path.join(wd, f"rank{r}.pt"), weights_only=True)
+                for r in range(MESH_RANKS)]
+    check(all(r["device"] == "cuda:0" for r in mres),
+          f"mesh ranks' devices {[r['device'] for r in mres]}")
+    print(f"[mesh] {MESH_RANKS} gloo ranks on {mres[0]['device']} ran in {ranks_wall:.1f} s "
+          "(spawn included); compat stages nothing through host memory: gloo took the CUDA "
+          "tensors of all_gather_into_tensor (the concatenated form), all_to_all_single and "
+          "all_reduce")
+
+    def mesh_counts(**per_rank) -> dict:
+        names = {"K1": K1, "K10": K10, "K11": K11,
+                 "K2": "encode_fused.codebook_encode_pack_resid_2d",
+                 "K4": "decode.codebook_decode_reduce_3d",
+                 "K6": "encode_fused.codebook_encode_pack_2d",
+                 "K8": "decode.codebook_decode_rows_3d"}
+        return {names[k]: v for k, v in per_rank.items()}
+
+    mwant = {"faithful": mesh_counts(K1=1, K2=1, K4=1),
+             "two_phase": mesh_counts(K1=1, K2=1, K4=1, K10=1, K6=1, K8=1),
+             "hierarchical": mesh_counts(K1=1, K2=2, K4=2, K10=2, K6=1, K8=1),
+             "dsgd": {}, "faithful_powersgd": mesh_counts(K1=1, K11=1),
+             "per_leaf_faithful": mesh_counts(K6=8, K4=8)}
+    for sync in ("faithful", "two_phase", "hierarchical"):
+        mwant[f"{sync}_masked"] = mwant[sync]
+    for label, (ts_, dp, masked) in mcases.items():
+        n_ = math.prod(dp)
+        live_ = mlive if masked else None
+        if ts_.bucket_mb > 0:
+            t0_ = (ktel.stack_rows([ktel.init_telemetry(1, dev)] * n_) if ts_.adaptive is not None
+                   else None)
+            ef_ = None
+            if ts_.error_feedback:
+                ef_ = [mstate[m] for m in kcodecs.bucket_state_sizes(ts_.compressor, [SLICE_N])]
+            wmean, wres, wt, wcm = reference_sync_state(ts_, mleaves8, dp, mkey8, ef=ef_,
+                                                        tstate=t0_, live=live_)
+        else:
+            wmean, wres, wt, wcm = reference_sync(ts_, mleaves8, dp, mkey8), None, None, None
+        wmean = [m.cpu() for m in wmean]
+        dsgd_err = 0.0
+        for r, res_ in enumerate(mres):
+            got = res_["cases"][label]
+            check(got["counts"] == mwant[label],
+                  f"mesh {label}: rank {r} launches {got['counts']}, expected {mwant[label]}")
+            for a, b in zip(got["mean"], mres[0]["cases"][label]["mean"], strict=True):
+                check(torch.equal(a, b), f"mesh {label}: rank {r}'s means differ from rank 0's")
+            if ts_.sync == "dsgd":
+                for a, b in zip(got["mean"], wmean, strict=True):
+                    rel = float((a - b).abs().max() / b.abs().max())
+                    check(rel <= 1e-6, f"mesh dsgd: rank {r} {rel:g} from the replay")
+                    dsgd_err = max(dsgd_err, rel)
+                continue
+            for i, (a, b) in enumerate(zip(got["mean"], wmean, strict=True)):
+                check(torch.equal(a, b), f"mesh {label}: rank {r} mean leaf {i} is not the "
+                      f"replay's (max abs {float((a - b).abs().max()):g})")
+            if ts_.error_feedback:
+                for b, e in enumerate(got["ef"]):
+                    check(torch.equal(e, wres[b][r].cpu()),
+                          f"mesh {label}: rank {r} EF row of bucket {b} is not the replay's")
+            if ts_.adaptive is not None:
+                for f, a in zip(ktel.TelemetryState._fields, got["tstate"], strict=True):
+                    check(torch.equal(a, getattr(wt, f)[r].cpu()),
+                          f"mesh {label}: rank {r} telemetry {f} is not the replay's")
+            if ts_.metrics_compression:
+                for f, a in zip(kmetrics.CompressionMetrics._fields, got["metrics"], strict=True):
+                    check(torch.equal(a, getattr(wcm, f)[r].cpu()),
+                          f"mesh {label}: rank {r} metric {f} is not the replay's")
+        for k, v in mwant[label].items():
+            launches[k] += v * MESH_RANKS
+        print(f"[mesh] {label} over dp {dp}{' masked ' + str(MESH_MASK) if masked else ''}: "
+              f"launches per rank {json.dumps(mres[0]['cases'][label]['counts'])} (predicted "
+              f"{json.dumps(mwant[label])}); "
+              + (f"means within {dsgd_err:.3g} relative of the replay, bitwise across ranks"
+                 if ts_.sync == "dsgd" else
+                 "means, EF, telemetry and metrics rows bitwise the card replay's and across "
+                 "ranks"))
+
+    # (b) the golden run, one client a rank
+    gwant = {k: v * len(golden_hist) for k, v in mesh_counts(K10=1, K2=1, K4=1).items()}
+    for r, res_ in enumerate(mres):
+        check(res_["golden"] == golden_hist,
+              f"mesh golden: rank {r}'s history is not phase 4's faithful_ef_off history: "
+              f"{res_['golden']}")
+        check(res_["golden_counts"] == gwant,
+              f"mesh golden: rank {r} launches {res_['golden_counts']}, expected {gwant}")
+    for k, v in gwant.items():
+        launches[k] += v * MESH_RANKS
+    ghist = mres[0]["golden"]
+    check(abs(ghist[-1] - 0.0162) <= 0.05, f"mesh golden: final loss {ghist[-1]}")
+    print(f"[mesh] golden faithful tnqsgd over {MESH_RANKS} ranks: first {ghist[0]:.6f} last "
+          f"{ghist[-1]:.6f} ({len(ghist)} steps, {max(r['golden_s'] for r in mres):.2f} s), every "
+          f"rank's history bitwise phase 4's faithful_ef_off; launches per rank "
+          f"{json.dumps(mres[0]['golden_counts'])}")
+    print(f"[mesh] golden losses {json.dumps(ghist)}")
+
+    # (c) a synced step on each rank: median of 5 (host clock, synchronized)
+    for label in ("faithful", "two_phase", "hierarchical", "dsgd"):
+        per_rank = [statistics.median(r["times"][label]["runs_ms"]) for r in mres]
+        shares = [statistics.median(r["times"][label]["collective_share"]) for r in mres]
+        print("[time] " + json.dumps({
+            "mesh_synced_step_ms_per_rank": per_rank, "collective_share_per_rank": shares,
+            "sync": label, "dp_sizes": list(mcases[label][1]), "ranks": MESH_RANKS,
+            "backend": "gloo", "elements": SLICE_N, "card": card}))
+    print(f"[mesh] phase wall time {time.time() - t_mesh:.1f} s")
 
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:

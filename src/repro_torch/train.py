@@ -5,8 +5,10 @@ convergence run (``tests/test_golden_convergence.py::_run``): smallnet on
 the synthetic shapes task, ``n_clients`` clients with their own batches,
 gradients synced each step through the reference sync
 (``dist.reference``: bucketed, or per leaf with ``bucket_mb=0``), momentum
-SGD on the synced mean.  On the card every
-sync runs the port's CUDA kernels.
+SGD on the synced mean.  Given a ``dist.compat.Mesh`` it runs data
+parallel instead: every rank of the process group computes its own
+client's gradient and syncs it through ``dist.train_step.make_sync_fn``.
+On the card every sync runs the port's CUDA kernels.
 
 ``train_clients`` is the counterpart of ``benchmarks/common.py::
 train_clients``, the paper's §V experiment: each client compresses every
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 
@@ -28,8 +31,9 @@ from repro_torch.core.compressors import (CompressorConfig, compress_decompress_
                                              plan_buckets)
 from repro_torch.core.error_feedback import compress_with_feedback, init_error
 from repro_torch.data.synthetic import client_batches, make_templates, shapes_batch
+from repro_torch.dist import compat
 from repro_torch.dist.reference import reference_sync, reference_sync_state
-from repro_torch.dist.train_step import TrainStepConfig
+from repro_torch.dist.train_step import TrainStepConfig, init_ef_state, make_sync_fn
 from repro_torch.elastic.schedule import ElasticConfig, live_mask
 from repro_torch.models.smallnet import (accuracy, init_smallnet, smallnet_loss, tree_leaves,
                                          tree_unflatten)
@@ -38,11 +42,19 @@ from repro_torch.optim.optimizers import momentum_sgd
 _KEY_SEED = 0x5EED
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; asking for CUDA without a card raises."""
+def resolve_device(device, mesh: compat.Mesh | None = None) -> torch.device:
+    """``device`` as a torch.device; asking for CUDA without a card raises.
+
+    On a mesh, ``"cuda"`` with no index is the card of the rank's local
+    rank (``LOCAL_RANK``, else its rank) modulo the cards: one card holds
+    every rank, a host with a card per rank gives each its own.
+    """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False")
+    if mesh is not None and device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", mesh.rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
     return device
 
 
@@ -81,7 +93,8 @@ def client_grads(params: dict, imgs: torch.Tensor, labels: torch.Tensor):
 def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
                  error_feedback: bool = False, steps: int = 30, n_clients: int = 8,
                  batch: int = 32, device="cuda", dp_sizes: tuple | None = None,
-                 bucket_mb: float = 4.0, elastic: ElasticConfig | None = None) -> list[float]:
+                 bucket_mb: float = 4.0, elastic: ElasticConfig | None = None,
+                 mesh: compat.Mesh | None = None) -> list[float]:
     """Fixed-seed synced training; returns the per-step mean client loss.
 
     ``dp_sizes`` lays the clients out as (pods…, data), row-major, for the
@@ -93,6 +106,16 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     step i syncs under ``live_mask(elastic, i, n_clients)``, as the JAX
     package's golden dropout run does.
 
+    ``mesh`` (a :class:`~repro_torch.dist.compat.Mesh` of ``n_clients``
+    ranks; ``dp_sizes`` then defaults to its sizes and must equal them):
+    this process is the client of the rank's index, computes only its own
+    batch and gradient, and syncs through ``make_sync_fn``; the step's
+    live mask is computed on every rank from ``(seed, step)``.  The
+    clients' losses are all-gathered once a step, outside the sync, so
+    every rank returns the same history, bitwise the one-device run's
+    where the gradients agree bitwise.  The caller initializes the process
+    group.
+
     Seeds follow the JAX run: ``key(0)`` for the init, ``key(42)`` for the
     class templates and ``fold_in(key(0x5EED), i)`` for step i's sync.  TF32 is
     switched off for the process, because the golden windows were pinned in
@@ -100,7 +123,11 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     convolution backward differs in the last bits from run to run, which the
     error-fed sync carries into a different loss history.
     """
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
+    if mesh is not None:
+        if dp_sizes is not None and tuple(dp_sizes) != mesh.dp_sizes:
+            raise ValueError(f"dp_sizes {tuple(dp_sizes)} are not the mesh's {mesh.dp_sizes}")
+        dp_sizes = mesh.dp_sizes
     dp_sizes = (n_clients,) if dp_sizes is None else tuple(dp_sizes)
     if math.prod(dp_sizes) != n_clients:
         raise ValueError(f"dp_sizes {dp_sizes} do not multiply to n_clients={n_clients}")
@@ -111,6 +138,8 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     params = init_smallnet(prng.key(0), device=device)
     opt = momentum_sgd(lr=0.01, momentum=0.9, weight_decay=5e-4)
     state = opt.init(params)
+    if mesh is not None:
+        return _train_mesh(ts, mesh, templates, params, opt, state, steps, n_clients, batch)
     ef = None
     if error_feedback:
         bp = plan_buckets([x.numel() for x in tree_leaves(params)], ts.bucket_elements)
@@ -128,6 +157,34 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
             mean = reference_sync(ts, stacked, dp_sizes, key, live=live)
         params, state = opt.update(params, tree_unflatten(params, mean), state)
         hist.append(float(torch.mean(losses)))
+    return hist
+
+
+def _train_mesh(ts: TrainStepConfig, mesh: compat.Mesh, templates, params, opt, state,
+                steps: int, n_clients: int, batch: int) -> list[float]:
+    """:func:`train_synced`'s loop on one rank of ``mesh``."""
+    rank = compat.flat_axis_index(mesh, mesh.axis_names)
+    leaves = tree_leaves(params)
+    sync = make_sync_fn(ts, mesh, leaves)
+    ef = init_ef_state(leaves, ts) if ts.error_feedback else None
+    hist = []
+    for i in range(steps):
+        imgs, labels = client_batches(templates, i, n_clients, batch)
+        losses, stacked = client_grads(params, imgs[rank:rank + 1], labels[rank:rank + 1])
+        args = [[g[0] for g in stacked], prng.fold_in(prng.key(_KEY_SEED), i)]
+        if ts.elastic is not None:
+            args.append(live_mask(ts.elastic, i, n_clients, imgs.device))
+        if ef is not None:
+            args.append(ef)
+        out = sync(*args)
+        if ef is not None:
+            mean, ef = out
+        else:
+            mean = out
+        params, state = opt.update(params, tree_unflatten(params, mean), state)
+        # the clients' losses, gathered once a step outside the sync
+        everyone = compat.all_gather_stacked(losses[0], mesh, mesh.axis_names)
+        hist.append(float(torch.mean(everyone)))
     return hist
 
 

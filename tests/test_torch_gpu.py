@@ -938,3 +938,104 @@ def test_metrics_step_card_against_cpu(cuda, masked):
             assert bool((torch.abs(got - want) <= 1e-3 * torch.abs(want)).all())
         else:
             assert torch.equal(got, want), f
+
+
+# -- the mesh sync: 2 gloo ranks on cuda:0 --------------------------------
+
+MESH_MODES = {"faithful": (2,), "two_phase": (2,), "hierarchical": (1, 2), "dsgd": (2,)}
+MESH_SHAPES = [(64, 48), (37, 61), (2048,), (999,)]
+
+
+def _mesh_gpu_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank: a sync per mode of ``MESH_MODES`` (tnqsgd, 3 bits, EF on but
+    for dsgd) on cuda:0 against the card replay this rank computes itself;
+    writes ``{mode: {ok, error, digest, counts}}``."""
+    import hashlib
+    import json
+    import os
+    import traceback
+
+    from repro_torch.core.codecs import bucket_state_sizes
+    from repro_torch.core.compressors import CompressorConfig, plan_buckets
+    from repro_torch.dist import compat
+    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.dist.train_step import TrainStepConfig, make_sync_fn
+    from repro_torch.train import _float32_and_deterministic
+
+    torch.set_num_threads(1)
+    _float32_and_deterministic()
+    torch.distributed.init_process_group("gloo", init_method=init, rank=rank,
+                                         world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        leaves = [_heavy(gen, world * math.prod(s), dev).reshape(world, *s)
+                  for s in MESH_SHAPES]
+        meshes = {dp: compat.Mesh(dp) for dp in sorted(set(MESH_MODES.values()))}
+        report = {}
+        for mode, dp in MESH_MODES.items():
+            try:
+                ts = TrainStepConfig(sync=mode, bucket_mb=1.0 / 64.0, error_feedback=mode != "dsgd",
+                                     compressor=CompressorConfig(method="tnqsgd", bits=3))
+                bp = plan_buckets([math.prod(s) for s in MESH_SHAPES], ts.bucket_elements)
+                ef = [_heavy(gen, world * m, dev, 1e-4).reshape(world, m)
+                      for m in bucket_state_sizes(ts.compressor, bp.sizes)]
+                key = prng.fold_in(prng.key(0x5EED), 3)
+                args = [[x[rank] for x in leaves], key]
+                if ts.error_feedback:
+                    args.append(tuple(e[rank] for e in ef))
+                kernels.reset_launch_counts()
+                out = make_sync_fn(ts, meshes[dp], args[0])(*args)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in kernels.launch_counts().items() if v}
+                mean = out[0] if ts.error_feedback else out
+                w_mean, w_res, _, _ = reference_sync_state(
+                    ts, leaves, dp, key, ef=ef if ts.error_feedback else None)
+                for a, b in zip(mean, w_mean, strict=True):
+                    assert a.device == dev
+                    if mode == "dsgd":
+                        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(
+                            b.abs().max()))
+                    else:
+                        assert torch.equal(a, b), "mean differs from the card replay"
+                if ts.error_feedback:
+                    for b_, e in enumerate(out[1]):
+                        assert torch.equal(e, w_res[b_][rank]), f"EF row {b_}"
+                h = hashlib.sha256()
+                for m in mean:
+                    h.update(m.cpu().numpy().tobytes())
+                report[mode] = {"ok": True, "digest": h.hexdigest(), "counts": counts}
+            except Exception:  # report the mode's failure and go on
+                report[mode] = {"ok": False, "error": traceback.format_exc()}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_gpu_reports(tmp_path_factory):
+    import json
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    tmp = tmp_path_factory.mktemp("mesh_gpu")
+    torch.multiprocessing.start_processes(_mesh_gpu_rank, args=(2, f"file://{tmp}/rdzv", str(tmp)),
+                                          nprocs=2, join=True, start_method="spawn")
+    return [json.load(open(tmp / f"rank{r}.json")) for r in range(2)]
+
+
+@pytest.mark.parametrize("mode", list(MESH_MODES))
+def test_mesh_sync_on_two_ranks_is_the_card_replay(mesh_gpu_reports, mode):
+    """Two gloo ranks on cuda:0 (hierarchical as one pod of 2): every
+    rank's means bitwise the other's and the card replay's (dsgd within
+    1e-6), its EF rows bitwise its replay rows, and the mode's kernels
+    launched on the card."""
+    reports = [r[mode] for r in mesh_gpu_reports]
+    for rank, rec in enumerate(reports):
+        assert rec["ok"], f"rank {rank}:\n{rec['error']}"
+    assert reports[0]["digest"] == reports[1]["digest"]
+    if mode != "dsgd":
+        assert reports[0]["counts"] == reports[1]["counts"]
+        assert reports[0]["counts"].get("decode.codebook_decode_reduce_3d", 0) >= 1
+        assert reports[0]["counts"].get("encode_fused.ef_correct_stats_2d", 0) == 3
