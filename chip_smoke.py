@@ -93,6 +93,21 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    golden faithful tnqsgd run through ``train_synced(mesh=...)``, one
    client a rank, every rank's history bitwise phase 4's; (c) a synced
    step's median of 5 a rank and the collectives' share of it;
+4c. serving: the LM zoo through ``dist.serve_step.make_serve_fns`` at
+   full config, no port kernel (the launch counts must not move): (a)
+   llama3.2-1b (16 layers, bfloat16, ``init_lm(prng.key(0))`` on the card)
+   prefills ``lm_batch``'s 4 x 64 and then 4 x 2,048 prompts and decodes
+   16 greedy tokens each, every run twice and bitwise equal (tokens and
+   logits); (b) the same weights cast to float32 and cut to 2 layers,
+   the card's prefill logits and 4 decode steps against the port's CPU
+   run within rtol 1e-4 / atol 1e-4 x max|logit|; (c) at 16 layers, decode
+   step k against a prefill over the prompt and the k decoded tokens, in
+   float32 within rtol/atol 2e-3 and in bfloat16 within a relative L2 of
+   3e-2; (d) qwen2-vl-2b (4 x 320 with its 256 patches) and whisper-base
+   (1,500 frames, 4 x 64) at full config, 8 tokens, twice bitwise, and
+   (b)'s check at 2 layers; (f) the prefill and decode times, tokens/s,
+   ``flash_attention``'s share of the 2,048 prefill (CUDA events) and the
+   peak memory;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -331,6 +346,223 @@ def _mesh_rank(rank: int, world: int, init: str, workdir: str, src: str,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+SERVE_TOKENS = 16                  # examples/serve_batched.py's default --tokens
+SERVE_RTOL = 1e-4                  # card against CPU, float32: rtol, and atol x max|logit|
+DECODE_F32_TOL = 2e-3              # decode against prefill, float32 (tests/test_models.py:62)
+DECODE_BF16_REL_L2 = 3e-2          # the same in bfloat16, relative L2
+
+
+def _tmap(f, tree):
+    return {k: _tmap(f, v) for k, v in tree.items()} if isinstance(tree, dict) else f(tree)
+
+
+def _leaves(tree) -> list:
+    return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) else [tree]
+
+
+def serving_phase(card: str) -> None:
+    """Phase 4c: the LM zoo's serving path through ``make_serve_fns`` at
+    full config on the card (the module docstring lists its checks)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist.serve_step import make_serve_fns
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import _float32_and_deterministic
+
+    _float32_and_deterministic()
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    counts0 = kernels.launch_counts()
+
+    def ms_since(t0: float) -> float:
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def serve(cfg, params, batch, n_tokens: int):
+        """Prefill, then greedy decode up to ``n_tokens`` tokens.  Returns the
+        tokens (B, n), the logits (n, B, V), the prefill's ms and each decode
+        step's ms (host clock, synchronized)."""
+        t = batch.tokens.shape[1]
+        prefill_fn, decode_fn = make_serve_fns(cfg, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill_fn(params, batch)
+        prefill_ms = ms_since(t0)
+        toks, outs, step_ms = [logits.argmax(-1)[:, None]], [logits], []
+        for i in range(n_tokens - 1):
+            t0 = time.perf_counter()
+            logits, caches = decode_fn(params, toks[-1], caches, t + i)
+            toks.append(logits.argmax(-1)[:, None])
+            step_ms.append(ms_since(t0))
+            outs.append(logits)
+        return torch.cat(toks, 1), torch.stack(outs), prefill_ms, step_ms
+
+    def serve_twice(label: str, cfg, params, batch, n_tokens: int):
+        runs = [serve(cfg, params, batch, n_tokens) for _ in range(2)]
+        (ta, la, pa, sa), (tb, lb, pb, sb) = runs
+        check(torch.equal(ta, tb) and torch.equal(la, lb), f"serve {label}: two runs differ")
+        check(bool(torch.isfinite(la).all()), f"serve {label}: logits not finite")
+        print(f"[serve] {label}: prefill then {n_tokens} greedy tokens, twice bit for bit; "
+              f"prefill {pa:.2f} / {pb:.2f} ms, decode median "
+              f"{statistics.median(sa + sb):.2f} ms a step; first row {ta[0].tolist()}")
+        return ta, pa, pb, sa + sb
+
+    def cut(cfg, params, layers: int, device):
+        """``cfg`` and ``params`` at ``layers`` units (the stacked blocks
+        sliced, the encoder's too), every leaf float32 on ``device``."""
+        def f32(t):
+            return t.to(device=device, dtype=torch.float32)
+
+        out = {k: _tmap(f32, v) for k, v in params.items() if k not in ("blocks", "encoder")}
+        out["blocks"] = _tmap(lambda t: f32(t[:layers]), params["blocks"])
+        kw = dict(num_layers=layers, param_dtype="float32", compute_dtype="float32")
+        if cfg.enc_dec:
+            enc = params["encoder"]
+            out["encoder"] = {"blocks": _tmap(lambda t: f32(t[:layers]), enc["blocks"]),
+                              "final_norm": _tmap(f32, enc["final_norm"])}
+            kw["num_enc_layers"] = layers
+        return cfg.replace(**kw), out
+
+    def card_vs_cpu(label: str, cfg, params, batch, steps: int = 4) -> None:
+        """Float32 at 2 layers: the card's prefill logits and ``steps``
+        decode steps against the port's CPU run, fed the card's tokens."""
+        cfg2, p_card = cut(cfg, params, 2, dev)
+        _, p_cpu = cut(cfg, params, 2, "cpu")
+        toks, got, _, _ = serve(cfg2, p_card, batch, steps + 1)
+        t = batch.tokens.shape[1]
+        prefill_fn, decode_fn = make_serve_fns(cfg2, t)
+        logits, caches = prefill_fn(p_cpu, tfm.Batch(*(None if x is None else x.cpu()
+                                                       for x in batch)))
+        want = [logits]
+        for i in range(steps):
+            logits, caches = decode_fn(p_cpu, toks[:, i:i + 1].cpu(), caches, t + i)
+            want.append(logits)
+        want, got = torch.stack(want), got.cpu()
+        scale = float(want.abs().max())
+        diff = (got - want).abs()
+        check(bool((diff <= SERVE_RTOL * scale + SERVE_RTOL * want.abs()).all()),
+              f"serve {label}: card against CPU at 2 layers off by {float(diff.max()):g} "
+              f"(max |logit| {scale:g})")
+        print(f"[serve] {label} float32 at 2 layers, card against CPU (prefill and {steps} "
+              f"decode steps): max abs err {float(diff.max()):.3g}, max |logit| {scale:.4g} "
+              f"(within rtol {SERVE_RTOL:g}, atol {SERVE_RTOL:g} x max |logit|)")
+
+    def decode_vs_prefill(cfg, params, batch, steps: int = 4):
+        """Decode step k's logits and the last-position logits of a prefill
+        over the prompt and the k tokens decoded so far, a pair per step."""
+        t = batch.tokens.shape[1]
+        prefill_fn, decode_fn = make_serve_fns(cfg, t)
+        logits, caches = prefill_fn(params, batch)
+        seq, pairs = batch.tokens, []
+        for k in range(steps):
+            tok = logits.argmax(-1)[:, None]
+            seq = torch.cat([seq, tok], 1)
+            logits, caches = decode_fn(params, tok, caches, t + k)
+            ref, _ = make_serve_fns(cfg, t + k + 1)[0](params, tfm.Batch(tokens=seq, labels=seq))
+            pairs.append((logits, ref))
+        return pairs
+
+    def flash_share(cfg, params, batch) -> tuple[float, float]:
+        """One prefill with CUDA events around every ``flash_attention``
+        call: (attention's share of the prefill, the prefill's ms)."""
+        spans, orig = [], tattn.flash_attention
+
+        def timed(*a, **kw):
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = orig(*a, **kw)
+            e[1].record()
+            spans.append(e)
+            return out
+
+        whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        prefill_fn, _ = make_serve_fns(cfg, batch.tokens.shape[1])
+        tattn.flash_attention = timed
+        try:
+            whole[0].record()
+            prefill_fn(params, batch)
+            whole[1].record()
+        finally:
+            tattn.flash_attention = orig
+        torch.cuda.synchronize()
+        total = whole[0].elapsed_time(whole[1])
+        return sum(a.elapsed_time(b) for a, b in spans) / total, total
+
+    # (a) llama3.2-1b at its published config: 16 layers, bfloat16
+    cfg = get_config("llama3.2-1b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_lm(prng.key(0), cfg, device=dev)
+    init_ms = ms_since(t0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] llama3.2-1b init_lm on the card: {n_params:,} parameters "
+          f"({cfg.param_dtype}) in {init_ms:.0f} ms")
+    b64 = lm_batch(cfg, 0, 4, 64, device=dev)
+    b2k = lm_batch(cfg, 0, 4, 2048, device=dev)
+    _, p64a, p64b, d64 = serve_twice("llama3.2-1b 4 x 64", cfg, params, b64, SERVE_TOKENS)
+    _, p2ka, p2kb, d2k = serve_twice("llama3.2-1b 4 x 2048", cfg, params, b2k, SERVE_TOKENS)
+    share, share_total = flash_share(cfg, params, b2k)
+    peak = torch.cuda.max_memory_allocated()
+
+    # (b) float32 at 2 layers, card against CPU
+    card_vs_cpu("llama3.2-1b", cfg, params, b64)
+
+    # (c) decode against prefill at full depth, bfloat16 and float32
+    rel_l2 = max(float((d.float() - r.float()).norm() / r.float().norm())
+                 for d, r in decode_vs_prefill(cfg, params, b64))
+    check(rel_l2 <= DECODE_BF16_REL_L2, f"serve llama3.2-1b bfloat16: decode {rel_l2:g} "
+          f"relative L2 from prefill")
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = _tmap(lambda t: t.float(), params)
+    pairs = decode_vs_prefill(cfg32, p32, b64)
+    f32_abs = max(float((d - r).abs().max()) for d, r in pairs)
+    f32_ratio = max(float(((d - r).abs() / (DECODE_F32_TOL + DECODE_F32_TOL * r.abs())).max())
+                    for d, r in pairs)
+    check(f32_ratio <= 1.0, f"serve llama3.2-1b float32: decode off prefill by {f32_abs:g} "
+          f"({f32_ratio:g} of rtol/atol {DECODE_F32_TOL:g})")
+    del p32, pairs
+    print(f"[serve] llama3.2-1b decode against prefill over the prompt and the decoded "
+          f"tokens, {cfg.num_layers} layers, 4 steps: float32 max abs err {f32_abs:.3g} ({f32_ratio:.3g} of "
+          f"rtol/atol {DECODE_F32_TOL:g}), bfloat16 relative L2 {rel_l2:.3g} "
+          f"(bound {DECODE_BF16_REL_L2:g})")
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) qwen2-vl-2b (256 patches) and whisper-base (1,500 frames) at full config
+    others = {}
+    for arch, seq in (("qwen2-vl-2b", 320), ("whisper-base", 64)):
+        ocfg = get_config(arch)
+        op = tfm.init_lm(prng.key(0), ocfg, device=dev)
+        ob = lm_batch(ocfg, 0, 4, seq, device=dev)
+        _, pa, pb, ds = serve_twice(f"{arch} 4 x {seq}", ocfg, op, ob, 8)
+        card_vs_cpu(arch, ocfg, op, ob)
+        others[arch] = {"prefill_ms": [pa, pb], "decode_ms_median": statistics.median(ds)}
+        del op
+        torch.cuda.empty_cache()
+
+    # (e) serving launches no port kernel
+    check(kernels.launch_counts() == counts0, "serving launched a port kernel")
+
+    # (f) times
+    b = b64.tokens.shape[0]
+    print("[time] " + json.dumps({
+        "serve": "llama3.2-1b", "batch": b, "prefill_ms_4x64": [p64a, p64b],
+        "prefill_ms_4x2048": [p2ka, p2kb],
+        "decode_ms_per_token_median_4x64": statistics.median(d64),
+        "decode_ms_per_token_median_4x2048": statistics.median(d2k),
+        "tokens_per_s_4x64": b * 1e3 / statistics.median(d64),
+        "tokens_per_s_4x2048": b * 1e3 / statistics.median(d2k),
+        "flash_attention_share_4x2048": share, "prefill_ms_4x2048_events": share_total,
+        "max_memory_allocated_bytes": peak, "init_lm_ms": init_ms, "card": card}))
+    print("[time] " + json.dumps({"serve_others": others, "card": card}))
+    print(f"[serve] no port kernel launched; phase wall time {time.time() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1648,6 +1880,9 @@ def main() -> int:
             "sync": label, "dp_sizes": list(mcases[label][1]), "ranks": MESH_RANKS,
             "backend": "gloo", "elements": SLICE_N, "card": card}))
     print(f"[mesh] phase wall time {time.time() - t_mesh:.1f} s")
+
+    # -- 4c. serving ------------------------------------------------------
+    serving_phase(card)
 
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:

@@ -1039,3 +1039,46 @@ def test_mesh_sync_on_two_ranks_is_the_card_replay(mesh_gpu_reports, mode):
         assert reports[0]["counts"] == reports[1]["counts"]
         assert reports[0]["counts"].get("decode.codebook_decode_reduce_3d", 0) >= 1
         assert reports[0]["counts"].get("encode_fused.ef_correct_stats_2d", 0) == 3
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-vl-2b", "whisper-base"])
+def test_reduced_serving_card_against_cpu(cuda, arch):
+    """The reduced arch served on the card (float32, TF32 off) against the
+    same weights and batch on the CPU: the prefill logits and 4 decode
+    steps within rtol 1e-4 / atol 1e-4 x max |logit|, the greedy tokens
+    equal, and no port kernel launched."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist.serve_step import make_serve_fns
+    from repro_torch.models import transformer
+    from repro_torch.train import _float32_and_deterministic
+
+    _float32_and_deterministic()
+    cfg = reduced(get_config(arch))
+    params = transformer.init_lm(prng.key(0), cfg, device="cpu")
+    batch = lm_batch(cfg, 0, 2, 32, device="cpu")
+    prefill_fn, decode_fn = make_serve_fns(cfg, 32)
+    counts = kernels.launch_counts()
+
+    def serve(device):
+        p = _tree_to(params, device)
+        b = transformer.Batch(*(None if x is None else x.to(device) for x in batch))
+        logits, caches = prefill_fn(p, b)
+        out, toks = [logits.cpu()], []
+        for i in range(4):
+            toks.append(logits.argmax(-1)[:, None])
+            logits, caches = decode_fn(p, toks[-1], caches, 32 + i)
+            out.append(logits.cpu())
+        return torch.stack(out), torch.cat(toks, 1).cpu()
+
+    got, got_toks = serve(cuda)
+    want, want_toks = serve("cpu")
+    assert torch.equal(got_toks, want_toks)
+    scale = float(want.abs().max())
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-4 * want.abs()).all())
+    assert kernels.launch_counts() == counts
+
+
+def _tree_to(tree: dict, device) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
