@@ -1,7 +1,7 @@
 """Serving example of the PyTorch port: batched prefill + greedy decode
 with KV caches (the counterpart of ``examples/serve_batched.py``).
 
-Runs a reduced llama (or another attention-only --arch) through
+Runs a reduced llama (or another --arch of the zoo) through
 ``dist.serve_step.make_serve_fns``: prefill a batch of prompts, then
 greedily decode tokens step by step.
 
@@ -24,8 +24,8 @@ from repro_torch.dist.serve_step import make_serve_fns  # noqa: E402
 from repro_torch.models import init_lm  # noqa: E402
 from repro_torch.train import resolve_device  # noqa: E402
 
-#: the archs the port serves: those that need no MoE or SSM layer
-SERVED_ARCHS = [a for a in list_archs() if get_config(a).family in ("dense", "vlm", "audio")]
+#: the archs the port serves: every arch of the zoo
+SERVED_ARCHS = list_archs()
 
 
 def main(argv=None):

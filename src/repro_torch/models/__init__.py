@@ -1,6 +1,6 @@
-"""Model zoo: smallnet and the LM zoo's attention-only families (dense,
-VLM, audio encoder-decoder), serving path."""
-from . import attention, layers, rope, smallnet, transformer
+"""Model zoo: smallnet and the LM zoo (dense, MoE, SSM, hybrid, VLM and
+audio encoder-decoder families), serving path."""
+from . import attention, layers, moe, rope, smallnet, ssm, transformer
 from .transformer import Batch, backbone, decode_step, init_caches, init_lm, prefill
 
 __all__ = [
@@ -11,8 +11,10 @@ __all__ = [
     "init_caches",
     "init_lm",
     "layers",
+    "moe",
     "prefill",
     "rope",
     "smallnet",
+    "ssm",
     "transformer",
 ]

@@ -1,26 +1,32 @@
-"""Decoder-only LM and Whisper-style encoder-decoder: the serving path.
+"""Decoder-only LM (dense / MoE / SSM / hybrid / VLM) and Whisper-style
+encoder-decoder: the serving path.
 
-The port of ``repro.models.transformer`` for the attention-only families
-(``dense``, ``vlm``, ``audio``):
+The port of ``repro.models.transformer``'s serving part, for every family
+of the zoo:
 
-- A *unit* is one layer.  Params are dicts of tensors stacked on the unit
-  axis, as the JAX package's scan stacks them; the forward loops over the
-  units in Python.
+- A *unit* is the JAX package's scan step: one layer for uniform stacks; a
+  superblock of ``attn_period`` sublayers for hybrids (Jamba: 1 attention +
+  7 SSM sublayers a unit, MoE on every other one), its params and caches
+  under ``sub{j}`` keys.  Params are dicts of tensors stacked on the unit
+  axis, as JAX's scan stacks them; the forward loops over the units in
+  Python.
 - ``init_lm`` draws the JAX package's weights from the same key: the same
   splits, a key per unit (``split(ks[1], units)``, as JAX's ``vmap`` over
-  them), each leaf cast to ``param_dtype``.
+  them), ``fold_in(key, j)`` for sublayer j of a superblock, each leaf cast
+  to ``param_dtype``.
 - ``prefill`` runs the full prompt and returns the last position's logits
-  and the KV caches, stacked on the unit axis (``KVCache`` with one host
-  ``length`` for every unit; ``{"self": KVCache, "cross_kv": (k, v)}`` for
-  the encoder-decoder).  ``decode_step`` runs one token against them and
-  **writes the caches in place**: it returns the same tensors with the new
-  length, so a caller that wants to keep a prefill's caches clones them.
+  and the caches, stacked on the unit axis: ``KVCache`` (one host
+  ``length`` for every unit) for attention, ``ssm.SSMState`` for an SSM
+  mixer, ``{"sub{j}": ...}`` for a superblock and ``{"self": KVCache,
+  "cross_kv": (k, v)}`` for the encoder-decoder.  ``decode_step`` runs one
+  token against them and **writes the caches in place**: it returns the
+  same tensors (KV caches with the new length), so a caller that wants to
+  keep a prefill's caches clones them.
 
-The ``moe``, ``ssm`` and ``hybrid`` families need ``models/moe.py`` and
-``models/ssm.py``, which are not ported yet: ``init_lm``, ``prefill``,
-``decode_step`` and ``init_caches`` raise ``NotImplementedError`` for them.
-The train path (``loss_fn``, the chunked cross-entropy, the decomposed
-train entries) and the logical-axis trees come with the train step.
+The MoE load-balance loss is computed (``moe.moe_apply`` returns it) but
+serving drops it.  The train path (``loss_fn``, the chunked cross-entropy,
+the decomposed train entries) and the logical-axis trees come with the
+train step.
 """
 from __future__ import annotations
 
@@ -35,9 +41,9 @@ from repro_torch.core import prng
 from .attention import (KVCache, attention_decode, attention_forward, attention_prefill,
                         attn_init, cross_attention_forward, cross_kv)
 from .layers import apply_norm, dense_init, dtype_of, mlp_apply, mlp_init, norm_init
+from .moe import dense_moe_apply, moe_apply, moe_init
 from .rope import sincos_embedding, sincos_row
-
-_UNPORTED_FAMILIES = ("moe", "ssm", "hybrid")
+from .ssm import SSMState, init_ssm_state, ssm_decode, ssm_forward, ssm_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,14 +82,6 @@ def _decoder_descs(cfg) -> tuple[list[SubDesc], int]:
     return descs, units
 
 
-def _require_ported(cfg, entry: str) -> None:
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{entry}: {cfg.name} is of the {cfg.family!r} family, which needs models/moe.py "
-            "or models/ssm.py; the port serves the attention-only families so far "
-            "(ROADMAP Queue 1, item 4)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -91,14 +89,26 @@ def _require_ported(cfg, entry: str) -> None:
 
 def _sublayer_init(key: torch.Tensor, cfg, desc: SubDesc, device) -> dict:
     ks = prng.split(key, 6)
+    mixer_init = attn_init if desc.mixer == "attn" else ssm_init
     p = {"ln1": norm_init(cfg, cfg.d_model, device),
-         "mixer": attn_init(ks[0], cfg, cfg.d_model, device)}
+         "mixer": mixer_init(ks[0], cfg, cfg.d_model, device)}
     if desc.cross:
         p["lnx"] = norm_init(cfg, cfg.d_model, device)
         p["cross"] = attn_init(ks[2], cfg, cfg.d_model, device)
-    p["ln2"] = norm_init(cfg, cfg.d_model, device)
-    p["ffn"] = mlp_init(ks[1], cfg, cfg.d_model, cfg.d_ff, dtype_of(cfg.param_dtype), device)
+    if desc.ffn != "none":
+        p["ln2"] = norm_init(cfg, cfg.d_model, device)
+    if desc.ffn == "moe":
+        p["ffn"] = moe_init(ks[1], cfg, cfg.d_model, device)
+    elif desc.ffn == "mlp":
+        p["ffn"] = mlp_init(ks[1], cfg, cfg.d_model, cfg.d_ff, dtype_of(cfg.param_dtype), device)
     return p
+
+
+def _unit_init(key: torch.Tensor, cfg, descs: list, device) -> dict:
+    if len(descs) == 1:
+        return _sublayer_init(key, cfg, descs[0], device)
+    return {f"sub{j}": _sublayer_init(prng.fold_in(key, j), cfg, d, device)
+            for j, d in enumerate(descs)}
 
 
 def _stacked(init_one, keys: torch.Tensor) -> dict:
@@ -131,14 +141,12 @@ def init_lm(key: torch.Tensor, cfg, device="cuda") -> dict:
     """The params tree, drawn from ``key`` as the JAX package's ``init_lm``
     draws it (its first result): a few ulp from JAX's float32 draws, as
     ``prng.normal`` is, before the cast to ``param_dtype``."""
-    _require_ported(cfg, "init_lm")
     descs, units = _decoder_descs(cfg)
     ks = prng.split(key, 8)
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     p: dict = {"embed": dense_init(ks[0], (cfg.vocab, d), d, dtype, device)}
-    p["blocks"] = _stacked(lambda k: _sublayer_init(k, cfg, descs[0], device),
-                           prng.split(ks[1], units))
+    p["blocks"] = _stacked(lambda k: _unit_init(k, cfg, descs, device), prng.split(ks[1], units))
     p["final_norm"] = norm_init(cfg, d, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(ks[2], (d, cfg.vocab), d, dtype, device)
@@ -179,14 +187,29 @@ def _unit(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _sublayer_fwd(cfg, p: dict, x: torch.Tensor, positions, mode: str, cache, position,
-                  capacity=None):
-    """Attention then MLP, pre-norm, for ``mode`` prefill | encode | decode.
-    Returns (x, new_cache)."""
+def _ffn_apply(cfg, desc: SubDesc, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The sublayer's FFN on x (B, S, D); a few experts over few tokens take
+    the dense path, as in the JAX package."""
+    if desc.ffn == "moe":
+        if cfg.moe.num_experts <= 4 and x.shape[0] * x.shape[1] < 4096:
+            return dense_moe_apply(cfg, p["ffn"], x)[0]
+        return moe_apply(cfg, p["ffn"], x)[0]
+    return mlp_apply(cfg, p["ffn"], x)
+
+
+def _sublayer_fwd(cfg, desc: SubDesc, p: dict, x: torch.Tensor, positions, mode: str, cache,
+                  position, capacity=None):
+    """Mixer (attention or SSM) then FFN, pre-norm, for ``mode`` prefill |
+    encode | decode.  Returns (x, new_cache)."""
     h = apply_norm(cfg, p["ln1"], x)
     new_cache = cache
     win = cfg.sliding_window
-    if mode == "prefill":
+    if desc.mixer == "ssm":
+        if mode == "prefill":
+            mx, new_cache = ssm_forward(cfg, p["mixer"], h, return_state=True)
+        else:
+            mx, new_cache = ssm_decode(cfg, p["mixer"], h, cache)
+    elif mode == "prefill":
         mx, new_cache = attention_prefill(cfg, p["mixer"], h, positions, window=win,
                                           capacity=capacity)
     elif mode == "encode":
@@ -194,13 +217,30 @@ def _sublayer_fwd(cfg, p: dict, x: torch.Tensor, positions, mode: str, cache, po
     else:
         mx, new_cache = attention_decode(cfg, p["mixer"], h, cache, position, window=win)
     x = x + mx
-    return x + mlp_apply(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x)), new_cache
+    if desc.ffn == "none":
+        return x, new_cache
+    return x + _ffn_apply(cfg, desc, p, apply_norm(cfg, p["ln2"], x)), new_cache
 
 
-def _unit_fwd_with_cross(cfg, p_u: dict, x: torch.Tensor, positions, enc_out, capacity=None):
+def _unit_fwd(cfg, descs: list, p: dict, x: torch.Tensor, positions, mode: str, cache,
+              position, capacity=None):
+    """One unit: a sublayer, or a superblock's sublayers in order with their
+    caches under ``sub{j}``.  Returns (x, new_cache)."""
+    if len(descs) == 1:
+        return _sublayer_fwd(cfg, descs[0], p, x, positions, mode, cache, position, capacity)
+    new_cache = {}
+    for j, d in enumerate(descs):
+        sub = cache[f"sub{j}"] if cache is not None else None
+        x, new_cache[f"sub{j}"] = _sublayer_fwd(cfg, d, p[f"sub{j}"], x, positions, mode, sub,
+                                                position, capacity)
+    return x, new_cache
+
+
+def _unit_fwd_with_cross(cfg, descs: list, p_u: dict, x: torch.Tensor, positions, enc_out,
+                         capacity=None):
     """One unit's prefill, computing cross-KV from ``enc_out`` as needed."""
     if not cfg.enc_dec:
-        return _sublayer_fwd(cfg, p_u, x, positions, "prefill", None, None, capacity)
+        return _unit_fwd(cfg, descs, p_u, x, positions, "prefill", None, None, capacity)
     h = apply_norm(cfg, p_u["ln1"], x)
     mx, kv_cache = attention_prefill(cfg, p_u["mixer"], h, positions,
                                      window=cfg.sliding_window, capacity=capacity)
@@ -251,9 +291,9 @@ def encode_frames(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(dtype_of(cfg.compute_dtype))
     x = x + sincos_embedding(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[:2])
-    blocks = params["encoder"]["blocks"]
+    blocks, desc = params["encoder"]["blocks"], SubDesc("attn", "mlp")
     for i in range(cfg.num_enc_layers):
-        x, _ = _sublayer_fwd(cfg, _unit(blocks, i), x, positions, "encode", None, None)
+        x, _ = _sublayer_fwd(cfg, desc, _unit(blocks, i), x, positions, "encode", None, None)
     return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
@@ -278,20 +318,42 @@ def _positions_for(cfg, batch: Batch) -> torch.Tensor:
 
 
 def _stack_caches(caches: list):
-    """Per-unit caches -> one cache tree stacked on the unit axis."""
-    def kv(cs):
-        return KVCache(k=torch.stack([c.k for c in cs]), v=torch.stack([c.v for c in cs]),
-                       length=cs[0].length)
+    """Per-unit caches -> one cache tree stacked on the unit axis (a KV
+    cache keeps its host ``length``)."""
+    c0 = caches[0]
+    if isinstance(c0, KVCache):
+        return KVCache(k=torch.stack([c.k for c in caches]),
+                       v=torch.stack([c.v for c in caches]), length=c0.length)
+    if isinstance(c0, dict):
+        return {k: _stack_caches([c[k] for c in caches]) for k in c0}
+    fields = [torch.stack(f) for f in zip(*caches)]   # SSMState or the cross (k, v)
+    return SSMState(*fields) if isinstance(c0, SSMState) else tuple(fields)
 
-    if isinstance(caches[0], KVCache):
-        return kv(caches)
-    return {"self": kv([c["self"] for c in caches]),
-            "cross_kv": tuple(torch.stack([c["cross_kv"][j] for c in caches]) for j in (0, 1))}
+
+def _unit_cache(caches, i: int):
+    """Unit ``i``'s slice of a stacked cache tree (views: decode writes
+    through them into the stacked tensors)."""
+    if isinstance(caches, KVCache):
+        return caches._replace(k=caches.k[i], v=caches.v[i])
+    if isinstance(caches, dict):
+        return {k: _unit_cache(v, i) for k, v in caches.items()}
+    fields = [t[i] for t in caches]
+    return SSMState(*fields) if isinstance(caches, SSMState) else tuple(fields)
+
+
+def _with_lengths(caches, unit):
+    """The stacked ``caches`` with the KV lengths of the last unit's new
+    caches ``unit`` (everything else was written in place)."""
+    if isinstance(caches, KVCache):
+        return caches._replace(length=unit.length)
+    if isinstance(caches, dict):
+        return {k: _with_lengths(v, unit[k]) for k, v in caches.items()}
+    return caches
 
 
 def backbone(cfg, params: dict, batch: Batch, capacity=None):
     """Embed -> units (prefill) -> final norm.  Returns (hidden, caches)."""
-    _, units = _decoder_descs(cfg)
+    descs, units = _decoder_descs(cfg)
     x = _embed_tokens(cfg, params, batch.tokens)
     if cfg.vlm_patches:
         x = _inject_vision(cfg, params, x, batch.patches)
@@ -299,8 +361,8 @@ def backbone(cfg, params: dict, batch: Batch, capacity=None):
     enc_out = encode_frames(cfg, params, batch.frames) if cfg.enc_dec else None
     caches = []
     for i in range(units):
-        x, c = _unit_fwd_with_cross(cfg, _unit(params["blocks"], i), x, positions, enc_out,
-                                    capacity)
+        x, c = _unit_fwd_with_cross(cfg, descs, _unit(params["blocks"], i), x, positions,
+                                    enc_out, capacity)
         caches.append(c)
     return apply_norm(cfg, params["final_norm"], x), _stack_caches(caches)
 
@@ -308,7 +370,6 @@ def backbone(cfg, params: dict, batch: Batch, capacity=None):
 def prefill(cfg, params: dict, batch: Batch, capacity=None):
     """Returns (last-token logits (B, V) float32, caches).  ``capacity``
     reserves cache room for subsequent decode steps."""
-    _require_ported(cfg, "prefill")
     hidden, caches = backbone(cfg, params, batch, capacity=capacity)
     last = hidden[:, -1]
     return (last @ lm_head_weights(cfg, params).to(last.dtype)).float(), caches
@@ -320,31 +381,26 @@ def decode_step(cfg, params: dict, token: torch.Tensor, caches, position: int):
 
     Returns (logits (B, V) float32, caches): the caches passed in, written
     in place, with the new length."""
-    _require_ported(cfg, "decode_step")
-    _, units = _decoder_descs(cfg)
+    descs, units = _decoder_descs(cfg)
     x = _embed_decode_token(cfg, params, token, position)
-    self_c = caches["self"] if cfg.enc_dec else caches
-    new_len = self_c.length
+    new_u = caches
     for i in range(units):
         p_u = _unit(params["blocks"], i)
-        cache_u = KVCache(k=self_c.k[i], v=self_c.v[i], length=self_c.length)
+        cache_u = _unit_cache(caches, i)
         if cfg.enc_dec:
             h = apply_norm(cfg, p_u["ln1"], x)
-            mx, new_u = attention_decode(cfg, p_u["mixer"], h, cache_u, position,
-                                         window=cfg.sliding_window)
+            mx, new_self = attention_decode(cfg, p_u["mixer"], h, cache_u["self"], position,
+                                            window=cfg.sliding_window)
             y = x + mx
             hx = apply_norm(cfg, p_u["lnx"], y)
-            ekv = (caches["cross_kv"][0][i], caches["cross_kv"][1][i])
-            y = y + cross_attention_forward(cfg, p_u["cross"], hx, ekv)
+            y = y + cross_attention_forward(cfg, p_u["cross"], hx, cache_u["cross_kv"])
             x = y + mlp_apply(cfg, p_u["ffn"], apply_norm(cfg, p_u["ln2"], y))
+            new_u = {"self": new_self, "cross_kv": cache_u["cross_kv"]}
         else:
-            x, new_u = _sublayer_fwd(cfg, p_u, x, None, "decode", cache_u, position)
-        new_len = new_u.length
+            x, new_u = _unit_fwd(cfg, descs, p_u, x, None, "decode", cache_u, position)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = (x[:, 0] @ lm_head_weights(cfg, params).to(x.dtype)).float()
-    new_self = self_c._replace(length=new_len)
-    return logits, ({"self": new_self, "cross_kv": caches["cross_kv"]} if cfg.enc_dec
-                    else new_self)
+    return logits, _with_lengths(caches, new_u)
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +410,7 @@ def decode_step(cfg, params: dict, token: torch.Tensor, caches, position: int):
 
 
 def init_caches(cfg, batch: int, cache_len: int, device="cuda"):
-    _require_ported(cfg, "init_caches")
-    _, units = _decoder_descs(cfg)
+    descs, units = _decoder_descs(cfg)
     dh = cfg.resolved_head_dim
     dt = dtype_of(cfg.compute_dtype)
     eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
@@ -366,7 +421,15 @@ def init_caches(cfg, batch: int, cache_len: int, device="cuda"):
     def zeros(s):
         return torch.zeros((units, batch, s, cfg.num_kv_heads, dh), dtype=dt, device=device)
 
-    kv = KVCache(k=zeros(eff_len), v=zeros(eff_len), length=fill)
-    if cfg.enc_dec:
-        return {"self": kv, "cross_kv": (zeros(cfg.enc_seq), zeros(cfg.enc_seq))}
-    return kv
+    def one(desc):
+        if cfg.enc_dec:
+            return {"self": KVCache(k=zeros(eff_len), v=zeros(eff_len), length=fill),
+                    "cross_kv": (zeros(cfg.enc_seq), zeros(cfg.enc_seq))}
+        if desc.mixer == "attn":
+            return KVCache(k=zeros(eff_len), v=zeros(eff_len), length=fill)
+        state = init_ssm_state(cfg, batch, torch.float32, device)
+        return SSMState(*(t.expand((units,) + tuple(t.shape)).contiguous() for t in state))
+
+    if len(descs) == 1:
+        return one(descs[0])
+    return {f"sub{j}": one(d) for j, d in enumerate(descs)}

@@ -1079,6 +1079,50 @@ def test_reduced_serving_card_against_cpu(cuda, arch):
     assert kernels.launch_counts() == counts
 
 
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen3-moe-235b-a22b"])
+def test_reduced_moe_and_hybrid_served_twice_bitwise(cuda, arch):
+    """A reduced jamba superblock and a reduced qwen3-moe at 16 experts top-8
+    (the sort-based dispatch and its fixed-order combine) served twice on
+    the card: the logits and tokens of prefill and 4 decode steps bit for
+    bit, within rtol 1e-4 / atol 1e-4 x max |logit| of the CPU's, and no
+    port kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist.serve_step import make_serve_fns
+    from repro_torch.models import transformer
+    from repro_torch.train import _float32_and_deterministic
+
+    _float32_and_deterministic()
+    cfg = reduced(get_config(arch))
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=16, top_k=8))
+    params = transformer.init_lm(prng.key(0), cfg, device="cpu")
+    batch = lm_batch(cfg, 0, 4, 64, device="cpu")
+    prefill_fn, decode_fn = make_serve_fns(cfg, 64)
+    counts = kernels.launch_counts()
+
+    def serve(device):
+        p = _tree_to(params, device)
+        b = transformer.Batch(*(None if x is None else x.to(device) for x in batch))
+        logits, caches = prefill_fn(p, b)
+        out, toks = [logits.cpu()], []
+        for i in range(4):
+            toks.append(logits.argmax(-1)[:, None])
+            logits, caches = decode_fn(p, toks[-1], caches, 64 + i)
+            out.append(logits.cpu())
+        return torch.stack(out), torch.cat(toks, 1).cpu()
+
+    first, second = serve(cuda), serve(cuda)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    want, want_toks = serve("cpu")
+    assert torch.equal(first[1], want_toks)
+    scale = float(want.abs().max())
+    assert bool(((first[0] - want).abs() <= 1e-4 * scale + 1e-4 * want.abs()).all())
+    assert kernels.launch_counts() == counts
+
+
 def _tree_to(tree: dict, device) -> dict:
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}

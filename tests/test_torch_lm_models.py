@@ -185,7 +185,8 @@ def test_attention_prefill_and_decode_caches_match_jax(variant):
         np.testing.assert_allclose(c.v.numpy(), np.asarray(jc.v), atol=ATTN_ATOL)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                                           "mamba2-2.7b", "jamba-1.5-large-398b"])
 def test_init_lm_matches_jax(arch):
     cfg, jcfg = _cfgs(arch)
     jp, _ = jtf.init_lm(jax.random.key(0), jcfg)

@@ -1,15 +1,18 @@
 """The port's serving path (``models.transformer.prefill``/``decode_step``,
 ``dist.serve_step.make_serve_fns``, ``examples/serve_batched_torch.py``)
-against the JAX package's, for the six attention-only archs.
+against the JAX package's, for the zoo's ten archs: the attention-only,
+MoE, SSM and hybrid families.
 
 Contract: from the same weights (``params_from_jax``) and JAX's batch, the
-prefill logits, the caches and 4 decode steps within rtol 1e-4 / atol
-1e-4 in float32, with the greedy tokens equal; in bfloat16 within a
+prefill logits, the caches (KV caches, SSM states and the hybrid's
+``sub{j}`` dicts) and 4 decode steps within rtol 1e-4 / atol 1e-4 in
+float32, with the greedy tokens equal; in bfloat16 within a
 relative L2 error of 2e-2; the port's decode against its own prefill over
 the longer prompt within 2e-3 (``tests/test_models.py``'s bound).  The
 VLM's decode positions follow JAX's ``decode_step``, which broadcasts the
 scalar position to the three M-RoPE streams (ROADMAP fact F11).
 """
+import dataclasses
 import importlib.util
 import inspect
 import pathlib
@@ -31,10 +34,11 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.data.synthetic import lm_batch  # noqa: E402
 from repro_torch.dist.serve_step import DECODE_MARGIN, make_serve_fns  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SERVED = ["llama3.2-1b", "gemma-7b", "granite-20b", "minitron-8b", "qwen2-vl-2b", "whisper-base"]
+SERVED = ["llama3.2-1b", "gemma-7b", "granite-20b", "minitron-8b", "qwen2-vl-2b", "whisper-base",
+          "phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b", "mamba2-2.7b", "jamba-1.5-large-398b"]
 RTOL = ATOL = 1e-4
 BF16_REL_L2 = 2e-2
 STEPS = 4
@@ -74,10 +78,20 @@ def _close(got, want, what):
 
 
 def _assert_caches(c, jc):
-    if isinstance(jc, dict):
+    if isinstance(jc, dict) and "cross_kv" in jc:
         _assert_caches(c["self"], jc["self"])
         for a, w in zip(c["cross_kv"], jc["cross_kv"], strict=True):
             _close(a, w, "cross_kv")
+        return
+    if isinstance(jc, dict):             # a hybrid superblock's sublayers
+        assert sorted(c) == sorted(jc)
+        for k in jc:
+            _assert_caches(c[k], jc[k])
+        return
+    if hasattr(jc, "ssm"):               # an SSM state, stacked on the unit axis
+        assert isinstance(c, ssm.SSMState)
+        for f in jc._fields:
+            _close(getattr(c, f), getattr(jc, f), f"ssm state {f}")
         return
     assert (np.asarray(jc.length) == c.length).all()
     _close(c.k, jc.k, "cache k")
@@ -111,6 +125,18 @@ def test_prefill_and_decode_match_jax(arch):
     jb = jlm_batch(jcfg, jnp.uint32(0), 2, 32)
     for i, (lg, jl) in enumerate(_run_both(cfg, jcfg, jp, jb, capacity=32 + 8)):
         _close(lg, jl, f"{arch} logits, step {i}")
+
+
+def test_moe_sort_path_matches_jax():
+    # 8 experts: _ffn_apply takes the sort-based dispatch, not the dense
+    # path it takes at <= 4, in prefill and in decode
+    cfg, jcfg = _cfgs("phi3.5-moe-42b-a6.6b")
+    cfg, jcfg = (c.replace(moe=dataclasses.replace(c.moe, num_experts=8)) for c in (cfg, jcfg))
+    jp, _ = jtf.init_lm(jax.random.key(0), jcfg)
+    assert jp["blocks"]["ffn"]["wi"].shape[1] == 8
+    jb = jlm_batch(jcfg, jnp.uint32(0), 2, 32)
+    for i, (lg, jl) in enumerate(_run_both(cfg, jcfg, jp, jb, capacity=32 + 8)):
+        _close(lg, jl, f"8-expert logits, step {i}")
 
 
 def test_bfloat16_llama_matches_jax():
@@ -210,23 +236,9 @@ def test_example_prints_jax_greedy_tokens(jax_served, capsys):
     assert rows == jax_served[2].tolist()
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-2.7b", "jamba-1.5-large-398b"])
-def test_moe_ssm_and_hybrid_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        transformer.init_lm(prng.key(0), cfg, device="cpu")
-    batch = transformer.Batch(tokens=torch.zeros((1, 4), dtype=torch.int64),
-                              labels=torch.zeros((1, 4), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        transformer.prefill(cfg, {}, batch)
-    with pytest.raises(NotImplementedError):
-        transformer.decode_step(cfg, {}, batch.tokens[:, :1], None, 4)
-    with pytest.raises(NotImplementedError):
-        transformer.init_caches(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("arch,window", [("llama3.2-1b", None), ("llama3.2-1b", 16),
-                                         ("whisper-base", None)])
+                                         ("whisper-base", None), ("mamba2-2.7b", None),
+                                         ("jamba-1.5-large-398b", None)])
 def test_init_caches_match_jax(arch, window):
     cfg, jcfg = _cfgs(arch, sliding_window=window)
     jc = jtf.init_caches(jcfg, 2, 24)
