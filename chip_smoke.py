@@ -117,6 +117,27 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    tokens/s, ``flash_attention``'s share of llama's 2,048 prefill,
    ``ssd_chunked``'s of mamba2's and ``moe_apply``'s of phi3.5-moe's (CUDA
    events), ``init_lm``'s time and the peak memory of each;
+4d. training: the LM zoo's train step (``dist.train_step.make_train_step``)
+   on the card: (a) llama3.2-1b at its published config (1.24 B
+   parameters, bfloat16, remat) through the launcher's code path
+   (``launch.train.run``) on one rank: batch 4 x 2,048, faithful tnqsgd at
+   3 bits with EF over 4 MB buckets (ten buckets, up to 268,435,456
+   elements; on one rank the two_phase mode transmits nothing, in both
+   packages, while the faithful one still encodes and decodes every
+   bucket), momentum SGD at lr 0.05, 3 steps, twice: the losses, gnorms
+   and final parameters bitwise equal, the loss falling, each step's
+   launches K1, K2 and K4 once a bucket, the peak memory under 70 GB, each
+   step's host-clock split (forward+backward, plan, draw, kernels,
+   optimizer, the rest); (b) 2 gloo ranks on ``cuda:0``, the reduced llama
+   in float32, faithful and two_phase tnqsgd with EF, 3 steps: every
+   rank's params, EF rows, loss and gnorm bitwise the in-process replay
+   (``train.lm_replay_step``), each rank's launches as predicted; (c) the
+   gradients of one reduced config of each family (2 units, float32)
+   twice bitwise on the card and card against CPU within 2e-5 of each
+   leaf's max |g|; (d) the adaptive
+   stepper on the reduced llama (replan every 2, 5 steps), each step card
+   against CPU from the card's state: the same bits adopted, the new
+   telemetry within rtol 1e-5 up to elements at a bin edge (fact F8);
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -128,9 +149,10 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    flat entry), K2-K9 also at the per-leaf two_phase chunk (25,088), the
    segmented K14 and K12 over a client's eight leaves
    beside their eight launches, the phase-2
-   kernels at a 4 MB bucket's chunk shape, one synced step's wall time per
-   sync mode and method, and one per-tensor round's compression phase by
-   phase.
+   kernels at a 4 MB bucket's chunk shape, K1, K2, K4 and K8 at the
+   largest LM gradient bucket (268,435,456 elements, one peer; each first
+   held to its plain version there), one synced step's wall time per sync
+   mode and method, and one per-tensor round's compression phase by phase.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -229,27 +251,31 @@ def _mesh_cases() -> dict:
     Every compressed bucketed case runs tnqsgd at 3 bits with EF, telemetry
     and ``metrics_compression`` on; dsgd takes none of EF, telemetry or
     metrics; the masked cases drop pod 0 of (2, 4) and peer 5 (the
-    schedule only puts the mask in the signature)."""
+    schedule only puts the mask in the signature).  None returns the gnorm:
+    the results are held to the replay, which has none."""
     from repro_torch.adaptive.controller import AdaptiveConfig
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.dist.train_step import TrainStepConfig
     from repro_torch.elastic import ElasticConfig
+
+    def config(**kw):
+        return TrainStepConfig(metrics_gnorm=False, **kw)
 
     tn = CompressorConfig(method="tnqsgd", bits=3)
     on = dict(error_feedback=True, adaptive=AdaptiveConfig(), metrics_compression=True,
               compressor=tn)
     layouts = (("faithful", (MESH_RANKS,)), ("two_phase", (MESH_RANKS,)),
                ("hierarchical", (2, MESH_RANKS // 2)))
-    cases = {sync: (TrainStepConfig(sync=sync, **on), dp, False) for sync, dp in layouts}
-    cases["dsgd"] = (TrainStepConfig(sync="dsgd", compressor=tn), (MESH_RANKS,), False)
+    cases = {sync: (config(sync=sync, **on), dp, False) for sync, dp in layouts}
+    cases["dsgd"] = (config(sync="dsgd", compressor=tn), (MESH_RANKS,), False)
     for sync, dp in layouts:
-        cases[f"{sync}_masked"] = (TrainStepConfig(sync=sync, elastic=ElasticConfig(rate=0.2),
-                                                   **on), dp, True)
-    cases["faithful_powersgd"] = (TrainStepConfig(
+        cases[f"{sync}_masked"] = (config(sync=sync, elastic=ElasticConfig(rate=0.2), **on), dp,
+                                   True)
+    cases["faithful_powersgd"] = (config(
         sync="faithful", error_feedback=True, compressor=CompressorConfig(method="powersgd",
                                                                           rank=4)),
         (MESH_RANKS,), False)
-    cases["per_leaf_faithful"] = (TrainStepConfig(sync="faithful", bucket_mb=0, compressor=tn),
+    cases["per_leaf_faithful"] = (config(sync="faithful", bucket_mb=0, compressor=tn),
                                   (MESH_RANKS,), False)
     return cases
 
@@ -642,6 +668,390 @@ def serving_phase(card: str) -> None:
     print(f"[serve] no port kernel launched; phase wall time {time.time() - t_phase:.1f} s")
 
 
+TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "2048", "--sync", "faithful",
+              "--method", "tnqsgd", "--bits", "3", "--ef", "--bucket-mb", "4", "--steps", "3",
+              "--device", "cuda"]
+TRAIN_MAX_PEAK_GB = 70.0           # past it, the full-width step would cut --seq to 1,024
+TRAIN_RANKS = 2                    # (b): gloo ranks on cuda:0, one client each
+TRAIN_STEPS = 3
+GRAD_CARD_RTOL = 2e-5              # (c): card against CPU, of each leaf's max |g|
+TRAIN_FAMILIES = {                 # (c): arch -> reduced() keywords (2 units each)
+    "llama3.2-1b": {}, "qwen2-vl-2b": {}, "whisper-base": {}, "phi3.5-moe-42b-a6.6b": {},
+    "mamba2-2.7b": {}, "jamba-1.5-large-398b": {"layers": 16}}
+
+
+class _Split:
+    """Host-clock time of the train step's parts, each call synchronized on
+    both sides; a part's time excludes the parts it calls (a kernel's
+    wrapper excludes its draw).  Only calls inside a step count."""
+
+    def __init__(self):
+        self.stack, self.ms = [], {}
+
+    def wrap(self, label: str, fn):
+        import torch
+
+        def timed(*a, **kw):
+            if not self.stack and label != "step":
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.stack.append(0.0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                el = (time.perf_counter() - t0) * 1e3
+                inner = self.stack.pop()
+                self.ms[label] = self.ms.get(label, 0.0) + el - inner
+                if self.stack:
+                    self.stack[-1] += el
+        return timed
+
+
+def _lm_rank(rank: int, world: int, init: str, workdir: str, src: str, device: str) -> None:
+    """One rank of phase 4d (b): the reduced llama in float32 through
+    ``make_train_step`` on a gloo mesh, every rank on ``cuda:0``, faithful
+    and two_phase tnqsgd with EF, ``TRAIN_STEPS`` steps each.  Writes its
+    params, EF rows, metrics and launches to ``workdir/rank<r>.pt``."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import prng
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist import compat
+    from repro_torch.dist.train_step import TrainStepConfig, init_ef_state, make_train_step
+    from repro_torch.models.smallnet import tree_leaves
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizers import momentum_sgd
+    from repro_torch.train import _float32_and_deterministic, resolve_device
+
+    torch.set_num_threads(1)
+    _float32_and_deterministic()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        mesh = compat.Mesh((world,))
+        dev = resolve_device(device, mesh)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        cfg = reduced(get_config("llama3.2-1b"))
+        params = init_lm(prng.key(0), cfg, device=dev)
+        out = {"device": str(dev)}
+        for sync in ("faithful", "two_phase"):
+            ts = TrainStepConfig(sync=sync, error_feedback=True,
+                                 compressor=CompressorConfig(method="tnqsgd", bits=3))
+            opt = momentum_sgd(lr=0.05)
+            batches = [lm_batch(cfg, i, 2 * world, 64, dev) for i in range(TRAIN_STEPS)]
+            fn = make_train_step(cfg, mesh, opt, ts, batches[0], params_like=params)
+            p, o, ef, ms = params, opt.init(params), init_ef_state(params, ts), []
+            kernels.reset_launch_counts()
+            for i in range(TRAIN_STEPS):
+                p, o, ef, m = fn(p, o, ef, batches[i], i)
+                ms.append({k: v.cpu() for k, v in m.items()})
+            out[sync] = {"params": [t.cpu() for t in tree_leaves(p)],
+                         "ef": [e.cpu() for e in ef], "metrics": ms,
+                         "counts": {k: v for k, v in kernels.launch_counts().items() if v}}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def training_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 4d: the LM zoo's train step on the card (the module docstring
+    lists its checks).  Returns the port kernels' launches of (a)'s first
+    full-width run and of (b)'s ranks."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch import kernels, train
+    from repro_torch.adaptive import runtime, telemetry
+    from repro_torch.adaptive.controller import AdaptiveConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import codecs, prng
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist import compat
+    from repro_torch.dist import train_step as tsmod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.smallnet import tree_leaves
+    from repro_torch.optim.optimizers import Optimizer, momentum_sgd
+
+    def resolve(d):
+        return torch.device("cuda", 0) if d.type == "cuda" else d
+
+    t_phase = time.time()
+    dev = torch.device(device)
+
+    # (a) llama3.2-1b at its published config through the launcher's code
+    # path, one rank, twice; each step's parts timed
+    kernel_ops = ("ef_correct_stats", "bucket_stats", "codebook_encode_pack_residual",
+                  "codebook_encode_pack", "codebook_decode_reduce", "codebook_decode_rows")
+
+    def full_width_run() -> tuple[dict, list, dict]:
+        split = _Split()
+        steps = []
+        saved = {"make_train_step": launcher.make_train_step,
+                 "get_optimizer": launcher.get_optimizer, "loss": tsmod._loss_and_grads,
+                 "plan": codecs.QuantizerCodec.plan, "uniform": prng.uniform,
+                 **{f"ops.{k}": getattr(ops, k) for k in kernel_ops}}
+
+        def make_step(*a, **kw):
+            fn = saved["make_train_step"](*a, **kw)
+
+            def step(*args):
+                torch.cuda.reset_peak_memory_stats()
+                before, split.ms = kernels.launch_counts(), {}
+                out = split.wrap("step", fn)(*args)
+                after = kernels.launch_counts()
+                steps.append({"split_ms": dict(split.ms),
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "launches": {k: after[k] - before[k] for k in after
+                                           if after[k] > before[k]}})
+                return out
+            return step
+
+        def get_opt(*a, **kw):
+            opt = saved["get_optimizer"](*a, **kw)
+            return Optimizer(init=opt.init, update=split.wrap("optimizer", opt.update))
+
+        launcher.make_train_step, launcher.get_optimizer = make_step, get_opt
+        tsmod._loss_and_grads = split.wrap("forward_backward", saved["loss"])
+        codecs.QuantizerCodec.plan = split.wrap("plan", saved["plan"])
+        prng.uniform = split.wrap("draw", saved["uniform"])
+        for k in kernel_ops:
+            setattr(ops, k, split.wrap("kernels", saved[f"ops.{k}"]))
+        kernels.reset_launch_counts()
+        try:
+            out = launcher.run(TRAIN_ARGV)
+        finally:
+            launcher.make_train_step, launcher.get_optimizer = (saved["make_train_step"],
+                                                                saved["get_optimizer"])
+            tsmod._loss_and_grads = saved["loss"]
+            codecs.QuantizerCodec.plan = saved["plan"]
+            prng.uniform = saved["uniform"]
+            for k in kernel_ops:
+                setattr(ops, k, saved[f"ops.{k}"])
+        torch.cuda.synchronize()
+        return out, steps, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    t0 = time.time()
+    first, steps_a, counts_a = full_width_run()
+    wall_a = time.time() - t0
+    hist = first["history"]
+    n_params = sum(t.numel() for t in tree_leaves(first["params"]))
+    n_buckets = len(tsmod.local_bucket_sizes(first["params"], tsmod.TrainStepConfig(bucket_mb=4.0)))
+    final = [t.cpu() for t in tree_leaves(first["params"])]
+    del first
+    torch.cuda.empty_cache()
+    second, steps_b, counts_b = full_width_run()
+    check([h["loss"] for h in second["history"]] == [h["loss"] for h in hist]
+          and [h["gnorm"] for h in second["history"]] == [h["gnorm"] for h in hist],
+          f"train: the second full-width run's losses differ: {second['history']} vs {hist}")
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(final, tree_leaves(second["params"]),
+                                                       strict=True)),
+          "train: the second full-width run's final parameters differ")
+    del second, final
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"]) for h in hist),
+          f"train: non-finite loss or gnorm {hist}")
+    check(hist[-1]["loss"] < hist[0]["loss"], f"train: the loss did not fall: {hist}")
+    per_step = {"encode_fused.ef_correct_stats_2d": n_buckets,
+                "encode_fused.codebook_encode_pack_resid_2d": n_buckets,
+                "decode.codebook_decode_reduce_3d": n_buckets}
+    for s in steps_a + steps_b:
+        check(s["launches"] == per_step, f"train: launches a step {s['launches']}, expected "
+                                         f"{per_step}")
+    check(counts_a == {k: v * TRAIN_STEPS for k, v in per_step.items()},
+          f"train: launches of the run {counts_a}")
+    peak_gb = max(s["peak_bytes"] for s in steps_a + steps_b) / 1e9
+    check(peak_gb <= TRAIN_MAX_PEAK_GB, f"train: peak {peak_gb:.2f} GB past {TRAIN_MAX_PEAK_GB}")
+    for s in steps_a + steps_b:   # the step's own time outside the timed parts
+        s["split_ms"]["other"] = s["split_ms"].pop("step")
+        s["step_ms"] = sum(s["split_ms"].values())
+    for i, (h, sa, sb) in enumerate(zip(hist, steps_a, steps_b)):
+        print(f"[train] llama3.2-1b step {i}: loss {h['loss']:.6f} gnorm {h['gnorm']:.6f}; "
+              f"step {sa['step_ms']:.1f} / {sb['step_ms']:.1f} ms, peak "
+              f"{sa['peak_bytes'] / 1e9:.2f} GB; launches {json.dumps(sa['launches'])}")
+    print(f"[train] llama3.2-1b at its published config ({n_params:,} parameters, bfloat16, "
+          f"remat, {n_buckets} buckets of up to 268,435,456 elements) through the launcher, "
+          f"one rank, faithful tnqsgd 3 bits with EF, {TRAIN_STEPS} steps, twice bit for bit "
+          f"(losses, gnorms and final parameters); the loss fell {hist[0]['loss']:.6f} -> "
+          f"{hist[-1]['loss']:.6f}; peak {peak_gb:.2f} GB; first run {wall_a:.1f} s")
+    for label, steps in (("first", steps_a), ("second", steps_b)):
+        for i, s in enumerate(steps):
+            print("[time] " + json.dumps({
+                "train": "llama3.2-1b", "run": label, "step": i, "step_ms": s["step_ms"],
+                "split_ms": s["split_ms"], "max_memory_allocated_bytes": s["peak_bytes"],
+                "batch": 4, "seq": 2048, "sync": "faithful", "ranks": 1, "card": card}))
+
+    # (b) 2 gloo ranks on cuda:0 against the in-process replay
+    cfg_r = reduced(get_config("llama3.2-1b"))
+    with tempfile.TemporaryDirectory() as wd:
+        t_spawn = time.time()
+        ctx = tmp.start_processes(_lm_rank, args=(TRAIN_RANKS, f"file://{wd}/rendezvous", wd,
+                                                  str(ROOT / "src"), device),
+                                  nprocs=TRAIN_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() - t_spawn > MESH_TIMEOUT_S:
+                    fail(f"train ranks still running after {MESH_TIMEOUT_S} s")
+        except Exception as e:  # a rank raised: report its traceback
+            fail(f"a train rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks = [torch.load(os.path.join(wd, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TRAIN_RANKS)]
+    check(all(r["device"] == str(resolve(dev)) for r in ranks), "train ranks' devices")
+    params_r = tfm.init_lm(prng.key(0), cfg_r, device=dev)
+    nb_r = len(tsmod.local_bucket_sizes(params_r, tsmod.TrainStepConfig()))
+    kn = {k: kernels.kernel_name(k) for k in kernels.KERNELS}
+    k1, k2, k4, k6, k8, k10 = (kn[kernels.ef_correct_stats_2d],
+                               kn[kernels.codebook_encode_pack_resid_2d],
+                               kn[kernels.codebook_decode_reduce_3d],
+                               kn[kernels.codebook_encode_pack_2d],
+                               kn[kernels.codebook_decode_rows_3d], kn[kernels.bucket_stats_2d])
+    want_b = {"faithful": {k1: nb_r, k2: nb_r, k4: nb_r},
+              "two_phase": {k1: nb_r, k2: nb_r, k4: nb_r, k10: nb_r, k6: nb_r, k8: nb_r}}
+    counts_b = {}
+    for sync in ("faithful", "two_phase"):
+        ts = tsmod.TrainStepConfig(sync=sync, error_feedback=True,
+                                   compressor=CompressorConfig(method="tnqsgd", bits=3))
+        opt = momentum_sgd(lr=0.05)
+        p, o = params_r, opt.init(params_r)
+        ef = [torch.zeros((TRAIN_RANKS, e.numel()), device=dev)
+              for e in tsmod.init_ef_state(params_r, ts)]
+        for i in range(TRAIN_STEPS):
+            p, o, ef, want = train.lm_replay_step(cfg_r, ts, opt, (TRAIN_RANKS,), p, o, ef,
+                                                  lm_batch(cfg_r, i, 2 * TRAIN_RANKS, 64, dev), i)
+            for r, rank in enumerate(ranks):
+                for k in ("loss", "gnorm"):
+                    check(torch.equal(rank[sync]["metrics"][i][k], want[k].cpu()),
+                          f"train (b) {sync}: rank {r}'s {k} at step {i} is not the replay's")
+        for r, rank in enumerate(ranks):
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(rank[sync]["params"],
+                                                              tree_leaves(p), strict=True)),
+                  f"train (b) {sync}: rank {r}'s params are not the replay's")
+            check(all(torch.equal(a, b[r].cpu()) for a, b in zip(rank[sync]["ef"], ef,
+                                                                 strict=True)),
+                  f"train (b) {sync}: rank {r}'s EF rows are not the replay's")
+            want = {k: v * TRAIN_STEPS for k, v in want_b[sync].items()} if dev.type == "cuda" \
+                else {}
+            check(rank[sync]["counts"] == want, f"train (b) {sync}: rank {r}'s launches "
+                                                f"{rank[sync]['counts']}, expected {want}")
+            for k, v in rank[sync]["counts"].items():
+                counts_b[k] = counts_b.get(k, 0) + v
+        losses = [float(m["loss"][0]) for m in ranks[0][sync]["metrics"]]
+        print(f"[train] (b) {sync}: {TRAIN_RANKS} gloo ranks on cuda:0, reduced llama3.2-1b "
+              f"float32, tnqsgd 3 bits with EF, {TRAIN_STEPS} steps: every rank's params, EF "
+              f"rows, loss and gnorm bitwise the in-process replay; losses {losses}; launches "
+              f"a rank {json.dumps(ranks[0][sync]['counts'])}")
+    del params_r
+
+    # (c) gradients card against CPU, float32 at 2 units, one config a
+    # family; the card's twice, bit for bit (the MoE dispatch and combine
+    # backward, the SSM chunk loop and the embedding gathers included)
+    for arch, kw in TRAIN_FAMILIES.items():
+        cfg = reduced(get_config(arch), **kw)
+        p_cpu = tfm.init_lm(prng.key(0), cfg, device="cpu")
+        b_cpu = lm_batch(cfg, 0, 2, 64 + cfg.vlm_patches, "cpu")
+        loss_cpu, g_cpu = tsmod._loss_and_grads(cfg, p_cpu, b_cpu, False)
+        p_dev = _tmap(lambda t: t.to(dev), p_cpu)
+        b_dev = tfm.Batch(*(None if x is None else x.to(dev) for x in b_cpu))
+        loss_dev, g_dev = tsmod._loss_and_grads(cfg, p_dev, b_dev, False)
+        loss_again, g_again = tsmod._loss_and_grads(cfg, p_dev, b_dev, False)
+        check(torch.equal(loss_again, loss_dev)
+              and all(torch.equal(a, b) for a, b in zip(tree_leaves(g_again), tree_leaves(g_dev),
+                                                        strict=True)),
+              f"train (c) {arch}: the card's loss and gradients differ between two runs")
+        del g_again
+        worst = 0.0
+        for a, w in zip(tree_leaves(g_dev), tree_leaves(g_cpu), strict=True):
+            scale = max(float(w.abs().max()), 1e-30)
+            worst = max(worst, float((a.cpu() - w).abs().max()) / scale)
+        check(worst <= GRAD_CARD_RTOL, f"train (c) {arch}: gradients {worst:g} of the leaf max "
+                                       f"from the CPU's")
+        check(abs(float(loss_dev) - float(loss_cpu)) <= GRAD_CARD_RTOL * abs(float(loss_cpu)),
+              f"train (c) {arch}: loss {float(loss_dev)} vs the CPU's {float(loss_cpu)}")
+        print(f"[train] (c) {arch} ({cfg.num_layers} layers, float32): gradients twice bitwise "
+              f"on the card, card against CPU within {worst:.3g} of each leaf's max |g|, loss "
+              f"{float(loss_dev):.6f} (CPU {float(loss_cpu):.6f})")
+
+    # (d) the adaptive stepper on the reduced llama, one rank, each step
+    # card against CPU: the CPU's stepper takes the card's state and plan
+    # and steps on the same batch; both adopt the same bits, the new
+    # telemetry within rtol 1e-5 up to elements at a bin edge (fact F8)
+    acfg = AdaptiveConfig(replan_every=2, warmup_steps=1, min_bits=2, max_bits=6)
+    ts = tsmod.TrainStepConfig(sync="faithful", error_feedback=True, bucket_mb=0.25,
+                               adaptive=acfg, compressor=CompressorConfig(method="tnqsgd",
+                                                                          bits=3))
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*(to_cpu(v) for v in tree)) if hasattr(tree, "_fields") \
+                else tuple(to_cpu(v) for v in tree)
+        return tree.cpu()
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{launcher._free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = compat.Mesh((1,))
+        opt = momentum_sgd(lr=0.05)
+        p = tfm.init_lm(prng.key(0), cfg_r, device=dev)
+        card, cpu = (runtime.AdaptiveStepper(cfg_r, mesh, opt, ts, lm_batch(cfg_r, 0, 4, 64, w),
+                                             params_like=to_cpu(p) if w == "cpu" else p)
+                     for w in (dev, "cpu"))
+        o, t, e = opt.init(p), card.init_telemetry(), tsmod.init_ef_state(p, ts)
+        plans, apart, moved = [], {}, 0.0
+        for i in range(5):
+            cpu.bits, cpu.plan = card.bits, card.plan
+            ins = to_cpu((p, o, e, t))
+            p, o, e, t, m = card.step(p, o, e, t, lm_batch(cfg_r, i, 4, 64, dev), i)
+            *_, t_cpu, _ = cpu.step(*ins, lm_batch(cfg_r, i, 4, 64, "cpu"), i)
+            check(cpu.bits == card.bits, f"train (d): step {i} plans {card.bits} on the card, "
+                                         f"{cpu.bits} on the CPU")
+            plans.append(card.bits)
+            t_card = to_cpu(t)
+            check(torch.equal(t_card.steps, t_cpu.steps), "train (d): telemetry steps")
+            for f in ("g_max", "mean", "msq"):   # a bucket's mean against its RMS
+                a_, b_ = getattr(t_card, f), getattr(t_cpu, f)
+                scale = torch.sqrt(t_cpu.msq) if f == "mean" else torch.abs(b_).max()
+                d = float((torch.abs(a_ - b_) / torch.clamp_min(scale, 1e-30)).max())
+                apart[f] = max(apart.get(f, 0.0), d)
+                check(d <= STATS_RTOL, f"train (d): step {i} telemetry {f} {d:g} apart")
+            dcounts = torch.abs(t_card.counts - t_cpu.counts)
+            moved = max(moved, float(dcounts.sum()) / (2 * (1 - acfg.ema)))
+            check(moved <= 1e-4 * sum(card.sizes), f"train (d): step {i}: {moved} elements in "
+                                                    "another bin on the card")
+            dlog = torch.abs(t_card.log_sums - t_cpu.log_sums)
+            check(bool((dlog <= STATS_RTOL * float(torch.abs(t_cpu.log_sums).max())
+                        + 69.1 * dcounts + 1e-6).all()),
+                  f"train (d): step {i} telemetry ln sums beyond rtol and the bin-edge moves")
+    finally:
+        dist.destroy_process_group()
+    check(plans[-1] != plans[0], f"train (d): the stepper never replanned: {plans}")
+    print(f"[train] (d) AdaptiveStepper on the reduced llama3.2-1b (replan every 2, 5 steps), "
+          f"each step card against CPU from the card's state: plans {plans} on both; "
+          f"telemetry apart {json.dumps(apart)} (a mean against its bucket's RMS), at most "
+          f"{moved:g} elements a step in another bin; last loss {float(m['loss'][0]):.6f}")
+    print(f"[train] phase wall time {time.time() - t_phase:.1f} s")
+    return {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in set(counts_a) | set(counts_b)}
+
+
 def main() -> int:
     t_script = time.time()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -713,10 +1123,14 @@ def main() -> int:
         if got.dtype == torch.float32:
             note_err(name, float(torch.abs(got - want).max()))
 
-    def stats_err(got, want, x2, n, what):
+    def stats_err(got, want, x2, n, what, counts=None):
+        """The tile against the plain one: counts and max bitwise, rows 1, 3
+        and 4 within rtol.  ``counts``: the exact float64 counts behind
+        ``want[0]``, where a bin passes 2**24 and float32 rounds it."""
+        total = float((got[0] if counts is None else counts).sum())
         check(torch.equal(got[0], want[0]), f"{what}: histogram counts differ")
         check(torch.equal(got[2], want[2]), f"{what}: max differs")
-        check(float(got[0].sum()) == n, f"{what}: counts sum {float(got[0].sum())} != {n}")
+        check(total == n, f"{what}: counts sum {total} != {n}")
         absx = torch.abs(x2.reshape(-1)[:n])
         for row, scale in ((1, torch.abs(want[1])), (3, absx.sum()), (4, want[4])):
             d = torch.abs(got[row] - want[row])
@@ -1961,6 +2375,10 @@ def main() -> int:
     # -- 4c. serving ------------------------------------------------------
     serving_phase(card)
 
+    # -- 4d. training -----------------------------------------------------
+    for k, v in training_phase(card).items():
+        launches[k] += v
+
     # -- 5. times ---------------------------------------------------------
     def graph_ms(fn, calls, reps=20) -> float:
         """Device time per call: a CUDA graph of every call in ``calls`` (whose
@@ -2156,6 +2574,74 @@ def main() -> int:
                                           launches_per_step_or_round=per_step[name],
                                           library=sp.get("library_name", "none"), card=card,
                                           **extra)))
+
+    # K1, K2, K4 and K8 at the largest LM gradient bucket: llama3.2-1b's
+    # stacked FFN leaf, 268,435,456 elements (25,165,824 wire words at 3
+    # bits), one peer, as phase 4d's faithful step launches K1, K2 and K4
+    # on it (K8 is a two_phase peer's decode); each first held to its plain
+    # version on the same inputs.  K1: c bitwise the plain g + e; the tile
+    # against the plain tiles of c's 2**24-element slices (a bin's count
+    # exact in float32 there) merged in float64, as phase 3 holds it:
+    # every bin's count bitwise the exact count rounded once to float32
+    # (the kernel counts in integers and rounds once), the max exact, the
+    # log sums and sums within STATS_RTOL of the merged tile and of the
+    # float64 sums
+    big_n = 268_435_456
+    big_rows = big_n // 128
+    bg, be = heavy(big_n, 1e-3).reshape(big_rows, 128), heavy(big_n, 1e-4).reshape(big_rows, 128)
+    c_big, tile_big = kenc.ef_correct_stats_2d(bg, be, big_n)
+    check(torch.equal(c_big, bg + be), "K1 at the LM bucket: c is not g + e")
+    part_rows = (1 << 24) // 128
+    parts = torch.stack([ref.bucket_stats(c_big[r:r + part_rows], part_rows * 128).double()
+                         for r in range(0, big_rows, part_rows)])
+    big_counts = parts[:, 0].sum(0)
+    tile_want = parts.sum(0).float()
+    tile_want[0] = big_counts.float()
+    tile_want[2] = parts[:, 2].amax(0).float()
+    big_rel = (stats_err(tile_big, tile_want, c_big, big_n, "K1 at the LM bucket",
+                         counts=big_counts),
+               exact_err(tile_big, c_big, big_n, "K1 at the LM bucket"))
+    del parts
+    print(f"[parity] K1 at the LM bucket ({big_n:,} elements): c bitwise g + e, the "
+          f"{kstats.NUM_BINS} bins' counts bitwise the exact ones rounded once (largest bin "
+          f"{int(big_counts.max()):,}), max exact, rows 1, 3, 4 within rtol {STATS_RTOL} of "
+          f"the plain tile (max abs diff {big_rel[0]:.6g}) and of the float64 sums (largest "
+          f"relative error {big_rel[1]:.3g})")
+    big_levels = plan_from_stats(cfg3, tile_big[0], tile_big[1], tile_big[2, 0]).levels
+    big_rand = prng.uniform(prng.key(268), (big_rows, 128), device=dev)
+    big_words, big_resid = kenc.codebook_encode_pack_resid_2d(c_big, big_rand, big_levels,
+                                                              big_n, bits)
+    want_words, want_resid = ref.codebook_encode_pack_residual(c_big, big_rand, big_levels,
+                                                               big_n, bits)
+    agree("encode_fused.codebook_encode_pack_resid_2d", big_words, want_words,
+          "words at the LM bucket")
+    agree("encode_fused.codebook_encode_pack_resid_2d", big_resid, want_resid,
+          "residual at the LM bucket")
+    del want_words, want_resid
+    big_w3, big_lv2 = big_words[None].contiguous(), big_levels[None].contiguous()
+    for kernel, plain in ((kdec.codebook_decode_reduce_3d, ref.codebook_decode_reduce),
+                          (kdec.codebook_decode_rows_3d, ref.codebook_decode_rows)):
+        agree(kernels.kernel_name(kernel), kernel(big_w3, big_lv2, bits),
+              plain(big_w3, big_lv2, bits), "at the LM bucket")
+    torch.cuda.empty_cache()
+    big_wb, big_lvb = big_words.numel() * 4, big_levels.numel() * 4
+    for name, fn, args, nbytes in (
+            ("encode_fused.ef_correct_stats_2d", kenc.ef_correct_stats_2d, (bg, be, big_n),
+             3 * 4 * big_n + tile),
+            ("encode_fused.codebook_encode_pack_resid_2d", kenc.codebook_encode_pack_resid_2d,
+             (c_big, big_rand, big_levels, big_n, bits), 3 * 4 * big_n + big_lvb + big_wb),
+            ("decode.codebook_decode_reduce_3d", kdec.codebook_decode_reduce_3d,
+             (big_w3, big_lv2, bits), big_wb + big_lvb + 4 * big_n),
+            ("decode.codebook_decode_rows_3d", kdec.codebook_decode_rows_3d,
+             (big_w3, big_lv2, bits), big_wb + big_lvb + 4 * big_n)):
+        ms = graph_ms(fn, [args], reps=10)
+        b_ms, b_by = bound(nbytes)
+        print("[time] " + json.dumps({
+            "lm_bucket": name, "elements": big_n, "peers": 1, "bits": bits, "ms": ms,
+            "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms, "bytes": nbytes,
+            "card": card}))
+    del bg, be, c_big, big_rand, big_words, big_resid, big_w3
+    torch.cuda.empty_cache()
 
     # K10 and K1 at the main path's bucket (smallnet, 206,922 elements) as
     # the sync launches them: on the 8 peers' flat buckets, the EF rows

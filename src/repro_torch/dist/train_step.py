@@ -1,23 +1,33 @@
-"""The gradient sync of one data-parallel rank — the sync region of
+"""The data-parallel train step of one rank — the port of
 ``repro.dist.train_step``.
 
-:class:`TrainStepConfig` carries the JAX package's fields and checks but
-``streamed``, which only the LM train step reads.  :func:`make_sync_fn` is
-the per-rank counterpart of ``_make_sync_fn``: the JAX package runs the
-sync inside a fully manual ``shard_map`` over stacked ``(n_dp, …)``
-arrays; here every rank of a :class:`~repro_torch.dist.compat.Mesh`
-calls it on its own rows, and the collectives cross the ``torch.distributed``
-groups of the mesh.  The mesh is data-parallel: its axes are all dp axes
-(one model shard), so the JAX package's model-axis ``psum`` of the metric
-sums is the identity here.  The sync returns no gradient norm: the JAX
-package's ``metrics_gnorm`` output is read only by its LM train step.
+:class:`TrainStepConfig` carries the JAX package's fields and checks.
+:func:`make_sync_fn` is the per-rank counterpart of ``_make_sync_fn``: the
+JAX package runs the sync inside a fully manual ``shard_map`` over stacked
+``(n_dp, …)`` arrays; here every rank of a
+:class:`~repro_torch.dist.compat.Mesh` calls it on its own rows, and the
+collectives cross the ``torch.distributed`` groups of the mesh.  The mesh
+is data-parallel: its axes are all dp axes (one model shard), so the JAX
+package's model-axis ``psum`` of the gnorm and the metric sums is the
+identity here, and every rank keeps the whole parameters (the configs'
+``fsdp`` changes only where JAX keeps them, not what it computes).
 
-``local_bucket_sizes`` and ``init_ef_state`` give this rank's bucket sizes
-and EF rows of the JAX package's state arrays.
+:func:`make_train_step` is the LM zoo's step on that mesh (or on one
+process with ``mesh=None``): each rank is one client, takes its row of
+the global batch (:func:`_client_batch`), computes its loss and gradients
+with ``torch.autograd`` (or the layer-streamed schedule,
+:func:`_streamed_loss_and_grads`), syncs the float32 gradients through
+:func:`make_sync_fn` under the step key ``fold_in(key(0x5EED), step)`` and
+applies the same optimizer update as every other rank.
+
+``local_bucket_sizes``, ``init_ef_state`` and ``init_telemetry_state``
+give this rank's bucket sizes, EF rows and telemetry row of the JAX
+package's state arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -27,13 +37,17 @@ from repro_torch.core import compressors, prng
 from repro_torch.core.codecs import (bucket_cfgs, bucket_state_sizes, get_codec,
                                      size_adaptive_plan)
 from repro_torch.core.compressors import CompressorConfig
-from repro_torch.elastic.schedule import ElasticConfig
+from repro_torch.elastic.schedule import ElasticConfig, live_mask
+from repro_torch.models import transformer
+from repro_torch.models.smallnet import tree_leaves, tree_unflatten
 from repro_torch.obs import metrics as obs_metrics
 
 from . import compat
 from . import sharded_codec as sc
 
 SYNC_MODES = ("dsgd", "two_phase", "hierarchical", "faithful")
+
+_KEY_SEED = 0x5EED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,19 +59,24 @@ class TrainStepConfig:
     (``dist.reference.reference_sync_state(tstate=...)``, decay
     ``adaptive.ema``); ``bits_plan`` gives each bucket its own width;
     buckets of at most ``fp16_threshold`` elements ship raw fp16 (0 =
-    off); ``metrics_compression`` makes the sync return every peer's
+    off); ``metrics_gnorm`` (on by default) makes the sync return the
+    global gradient norm, computed from the flat mean buckets;
+    ``metrics_compression`` makes it return every peer's
     ``obs.metrics.CompressionMetrics``; ``elastic`` is the deterministic
     partial-participation schedule whose per-step live mask
     (``elastic.live_mask``) the sync renormalizes the peer mean over,
     dropped peers' EF rows accumulating.  ``bucket_mb=0`` selects the
-    per-leaf codec, which takes none of these."""
+    per-leaf codec, which takes none of these.  ``streamed`` swaps the
+    train step's one-shot backward for the layer-streamed schedule."""
 
     sync: str = "dsgd"
+    streamed: bool = False
     compressor: CompressorConfig = dataclasses.field(default_factory=CompressorConfig)
     bucket_mb: float = 4.0
     error_feedback: bool = False
     adaptive: AdaptiveConfig | None = None
     bits_plan: tuple[int, ...] | None = None
+    metrics_gnorm: bool = True
     metrics_compression: bool = False
     elastic: ElasticConfig | None = None
     fp16_threshold: int = 0
@@ -132,8 +151,9 @@ def _sync_buckets(ts: TrainStepConfig, vals: list, key: torch.Tensor, mesh: comp
                   dp: tuple, ef=None, tstate=None, live=None):
     """Bucketed sync of this rank's flat leaf list.
 
-    Returns ``(mean_leaves, state_rows, new_telemetry, metric_sums)``:
-    ``state_rows`` this rank's EF rows (None without error feedback),
+    Returns ``(mean_leaves, state_rows, new_telemetry, mean_buckets,
+    metric_sums)``: ``state_rows`` this rank's EF rows (None without error
+    feedback), ``mean_buckets`` the flat means the gnorm is taken from,
     ``metric_sums`` the ``obs.metrics.local_sums`` pair under
     ``ts.metrics_compression`` (else None).  Each bucket is read once by the
     one-pass EF correction and statistics (``correct_stats``: K1 with EF,
@@ -195,7 +215,14 @@ def _sync_buckets(ts: TrainStepConfig, vals: list, key: torch.Tensor, mesh: comp
         cm = obs_metrics.local_sums(cfgs, buckets, stats, resids, ef, compressed)
     if not ts.error_feedback:
         resids = None
-    return mean_leaves, resids, new_t, cm
+    return mean_leaves, resids, new_t, means, cm
+
+
+def global_norm(flat: list) -> torch.Tensor:
+    """sqrt of the sum over ``flat`` (the mean buckets, or the mean leaves of
+    the per-leaf codec) of each one's sum of squares, in float32, in their
+    order: the JAX package's gnorm."""
+    return torch.sqrt(sum(torch.sum(torch.square(m.to(torch.float32))) for m in flat))
 
 
 def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
@@ -203,10 +230,10 @@ def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
 
     ``grads_like``: this rank's gradient leaves (or tensors of their
     shapes), in ``jax.tree.leaves`` order.  Returns ``sync(grads, key[,
-    live][, ef][, tstate]) -> (mean[, new_ef][, new_tstate][, metrics])``,
-    the argument and result order of the JAX package's ``_make_sync_fn``
-    with ``metrics_gnorm=False``, each stacked ``(n_dp, …)`` array of it
-    this rank's row:
+    live][, ef][, tstate]) -> (mean[, new_ef][, new_tstate][, gnorm][,
+    metrics])``, the argument and result order of the JAX package's
+    ``_make_sync_fn``, each stacked ``(n_dp, …)`` array of it this rank's
+    row:
 
     - ``grads``: the leaves; ``mean``: the synced mean leaves, bitwise
       equal on every rank for every compressed mode;
@@ -216,7 +243,9 @@ def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
     - ``ef`` (with ``ts.error_feedback``): this rank's EF rows, one per
       bucket (:func:`init_ef_state`);
     - ``tstate`` (with ``ts.adaptive``): this rank's telemetry row
-      (``adaptive.telemetry.init_telemetry`` over the buckets);
+      (:func:`init_telemetry_state`);
+    - ``gnorm`` (with ``ts.metrics_gnorm``): :func:`global_norm` of the mean
+      buckets (the mean leaves per leaf), a float32 scalar;
     - ``metrics`` (with ``ts.metrics_compression``): this rank's
       :class:`~repro_torch.obs.metrics.CompressionMetrics`, (B,) leaves.
     """
@@ -240,17 +269,20 @@ def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
             raise ValueError(f"gradient shapes {[tuple(g.shape) for g in vals]} are not "
                              f"{shapes}")
         if ts.bucket_mb > 0:
-            out, resid, new_t, cm = _sync_buckets(
+            out, resid, new_t, gsrc, cm = _sync_buckets(
                 ts, vals, key, mesh, dp, None if ef is None else list(ef), tstate, live)
         else:
             out = [_sync_leaf(ts, g, prng.fold_in(key, i), mesh, dp)
                    for i, g in enumerate(vals)]
             resid = new_t = cm = None
+            gsrc = out
         result = [out]
         if ts.error_feedback:
             result.append(tuple(resid))
         if ts.adaptive is not None:
             result.append(new_t)
+        if ts.metrics_gnorm:
+            result.append(global_norm(gsrc))
         if cm is not None:
             result.append(obs_metrics.finalize(*cm, 1))
         return tuple(result) if len(result) > 1 else result[0]
@@ -258,11 +290,17 @@ def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
     return sync
 
 
+def _leaf_list(params_like) -> list:
+    """A params tree (nested dicts) as its ``jax.tree.leaves``-ordered
+    leaves; a list passes through."""
+    return tree_leaves(params_like) if isinstance(params_like, dict) else list(params_like)
+
+
 def local_bucket_sizes(params_like, ts: TrainStepConfig) -> tuple[int, ...]:
     """Element counts of the codec's buckets as one rank sees them: the
     data-parallel mesh shards no leaf, so ``plan_buckets`` of the sizes of
-    ``params_like`` (the parameter leaves)."""
-    return tuple(compressors.plan_buckets([x.numel() for x in params_like],
+    ``params_like`` (the parameter tree or its leaves)."""
+    return tuple(compressors.plan_buckets([x.numel() for x in _leaf_list(params_like)],
                                           ts.bucket_elements).sizes)
 
 
@@ -272,6 +310,249 @@ def init_ef_state(params_like, ts: TrainStepConfig) -> tuple:
     with the fp16 tier applied, on the device of the parameters."""
     sizes = local_bucket_sizes(params_like, ts)
     plan = size_adaptive_plan(ts.compressor, ts.bits_plan, sizes, ts.fp16_threshold)
-    device = params_like[0].device
+    device = _leaf_list(params_like)[0].device
     return tuple(torch.zeros(s, dtype=torch.float32, device=device)
                  for s in bucket_state_sizes(ts.compressor, sizes, plan))
+
+
+def init_telemetry_state(params_like, ts: TrainStepConfig):
+    """This rank's zero telemetry row over the bucket plan (the JAX
+    package's stacked state has one such row per client), on the device of
+    the parameters."""
+    n_buckets = len(local_bucket_sizes(params_like, ts))
+    return adaptive_telemetry.init_telemetry(n_buckets, device=_leaf_list(params_like)[0].device)
+
+
+# -- the loss and its gradients ----------------------------------------------
+
+
+def _grad_leaves(params: dict) -> tuple[list, dict]:
+    """Fresh autograd leaves for the params' tensors, and the tree of them."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    return leaves, tree_unflatten(params, leaves)
+
+
+def _grads(outputs, inputs: list, grad_outputs=None) -> list:
+    """``torch.autograd.grad``, zeros for inputs the outputs do not reach
+    (as JAX's gradients of unused params are)."""
+    return list(torch.autograd.grad(outputs, inputs, grad_outputs, allow_unused=True,
+                                    materialize_grads=True))
+
+
+def _loss_and_grads(cfg, params: dict, batch, streamed: bool):
+    """One client's loss (a float32 scalar) and gradient tree (each leaf in
+    its param's dtype): ``autograd`` through ``transformer.loss_fn``, or the
+    layer-streamed schedule."""
+    if streamed:
+        return _streamed_loss_and_grads(cfg, params, batch)
+    leaves, tree = _grad_leaves(params)
+    loss = transformer.loss_fn(cfg, tree, batch)
+    return loss.detach(), tree_unflatten(params, _grads(loss, leaves))
+
+
+def _stack_trees(trees: list) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _streamed_loss_and_grads(cfg, full_params: dict, batch):
+    """Layer-streamed loss and grads: a forward over the units without
+    autograd saving each unit's input, the head's backward, then each
+    unit's backward in reverse (its forward recomputed), so one unit's
+    backward graph is alive at a time.  The same math as the plain
+    schedule: the head's and the embedding's gradients of the outer params
+    are added (head + embed, as JAX adds them), the units' gradients
+    stacked on the unit axis."""
+    if cfg.enc_dec:
+        raise ValueError("the streamed schedule runs decoder-only stacks (make_train_step "
+                         "takes the plain one for an encoder-decoder)")
+    outer = transformer.outer_params(full_params)
+    positions = transformer._positions_for(cfg, batch)
+    _, units = transformer._decoder_descs(cfg)
+    o_leaves, o_tree = _grad_leaves(outer)
+    h0 = transformer.embed_fn(cfg, o_tree, batch)
+    blocks = transformer._units(full_params["blocks"], units)
+
+    h_ins, aux_total = [], 0.0
+    with torch.no_grad():
+        h = h0.detach()
+        for p_u in blocks:
+            h_ins.append(h)
+            h, aux = transformer.unit_fn(cfg, p_u, h, positions)
+            aux_total = aux_total + aux
+    h_final = h.requires_grad_(True)
+    xent = transformer.head_fn(cfg, o_tree, h_final, batch)
+    loss = xent + transformer.AUX_LOSS_WEIGHT * aux_total
+    *g_head, g_h = _grads(xent, o_leaves + [h_final])
+
+    aux_w = torch.tensor(transformer.AUX_LOSS_WEIGHT, dtype=torch.float32, device=h0.device)
+    g_blocks = [None] * units
+    for i in reversed(range(units)):
+        p_leaves, p_tree = _grad_leaves(blocks[i])
+        h_in = h_ins[i].requires_grad_(True)
+        h2, aux = transformer.unit_fn(cfg, p_tree, h_in, positions)
+        outs, g_outs = [h2], [g_h]
+        if isinstance(aux, torch.Tensor) and aux.requires_grad:
+            outs.append(aux)
+            g_outs.append(aux_w)
+        *g_p, g_h = _grads(outs, p_leaves + [h_in], g_outs)
+        g_blocks[i] = tree_unflatten(blocks[i], g_p)
+    g_embed = _grads(h0, o_leaves, g_h)
+    grads = tree_unflatten(outer, [a + b for a, b in zip(g_head, g_embed)])
+    grads["blocks"] = _stack_trees(g_blocks)
+    return loss.detach(), grads
+
+
+# -- make_train_step ---------------------------------------------------------
+
+
+def _client_batch(batch, n_clients: int):
+    """Split the global batch into per-client slices: each field reshaped
+    to (…, n_clients, B / n_clients, …) on its batch axis, and the axis of
+    the client index of each field (None for an absent one)."""
+
+    def split(x, batch_dim: int):
+        if x is None:
+            return None
+        b = x.shape[batch_dim]
+        return x.reshape(tuple(x.shape[:batch_dim]) + (n_clients, b // n_clients)
+                         + tuple(x.shape[batch_dim + 1:]))
+
+    pos_dim = 1 if (batch.positions is not None and batch.positions.dim() == 3) else 0
+    split_batch = transformer.Batch(
+        tokens=split(batch.tokens, 0),
+        labels=split(batch.labels, 0),
+        positions=split(batch.positions, pos_dim),
+        patches=split(batch.patches, 0),
+        frames=split(batch.frames, 0),
+    )
+    axes = transformer.Batch(
+        tokens=0, labels=0,
+        positions=pos_dim if batch.positions is not None else None,
+        patches=0 if batch.patches is not None else None,
+        frames=0 if batch.frames is not None else None,
+    )
+    return split_batch, axes
+
+
+def client_row(split_batch, axes, client: int):
+    """Client ``client``'s batch out of :func:`_client_batch`'s split."""
+    return transformer.Batch(*(None if x is None else x.select(ax, client)
+                               for x, ax in zip(split_batch, axes)))
+
+
+def _full(x, n: int) -> torch.Tensor:
+    """A float32 scalar replicated (n,), as the JAX metrics are."""
+    return x.reshape(1).to(torch.float32).expand(n).clone()
+
+
+def make_train_step(cfg, mesh: compat.Mesh | None, opt, ts: TrainStepConfig, batch,
+                    params_like=None):
+    """This rank's train step for one configuration.
+
+    ``mesh``: a data-parallel :class:`~repro_torch.dist.compat.Mesh` (this
+    process is the client of its rank's index), or None for one process
+    and no sync.  ``batch``: a global batch of the shapes the step will be
+    given (its batch must split evenly over the clients).  ``params_like``:
+    the params tree or tensors of its shapes (default: the params of the
+    first call).
+
+    ``step_fn(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``; with ``ts.error_feedback`` the EF rows
+    (:func:`init_ef_state`) and with ``ts.adaptive`` the telemetry row
+    (:func:`init_telemetry_state`) ride in the slots after ``opt_state``,
+    in that order, in the arguments and the results, as in the JAX
+    package.  ``step`` is the host int step number.  Metrics follow the
+    JAX package's contract: ``loss`` is the mean client loss (a ``psum``
+    of each rank's loss times the float32 1/n) and ``gnorm`` (with
+    ``ts.metrics_gnorm``) the synced mean's norm, both (n_dp,) float32 and
+    replicated; ``compression`` (with ``ts.metrics_compression``) every
+    rank's CompressionMetrics, (n_dp, n_buckets) leaves; ``live`` and
+    ``live_count`` with ``ts.elastic``.
+    """
+    b = batch.tokens.shape[0]
+    if mesh is not None:
+        dp = mesh.axis_names
+        n_dp = math.prod(mesh.dp_sizes)
+        if b % n_dp:
+            raise ValueError(f"global batch {b} must be divisible by the {n_dp} data shards of "
+                             f"mesh {dict(zip(dp, mesh.dp_sizes))}")
+        client = compat.flat_axis_index(mesh, dp)
+    else:
+        dp, n_dp, client = (), 1, 0
+    if ts.error_feedback and mesh is None:
+        raise ValueError("error_feedback needs data-parallel mesh axes (the sync path)")
+    adaptive = ts.adaptive is not None
+    if adaptive and mesh is None:
+        raise ValueError("adaptive telemetry needs data-parallel mesh axes (the sync path)")
+    streamed = ts.streamed and not cfg.enc_dec
+    syncs = []   # built from params_like, or from the first call's params
+
+    def sync_for(params):
+        if not syncs:
+            like = _leaf_list(params_like if params_like is not None else params)
+            syncs.append(make_sync_fn(ts, mesh, like))
+        return syncs[0]
+
+    def _step(params, opt_state, ef_state, tstate, batch_g, step):
+        split_batch, axes = _client_batch(batch_g, n_dp)
+        loss, grads = _loss_and_grads(cfg, params, client_row(split_batch, axes, client),
+                                      streamed)
+        g_leaves = [g.to(torch.float32) for g in tree_leaves(grads)]
+        key = prng.fold_in(prng.key(_KEY_SEED), step)
+        new_ef, new_t, gnorm, cmetrics, live = ef_state, tstate, None, None, None
+        if mesh is not None:
+            args = [g_leaves, key]
+            if ts.elastic is not None:
+                live = live_mask(ts.elastic, step, n_dp, loss.device)
+                args.append(live)
+            if ts.error_feedback:
+                args.append(ef_state)
+            if adaptive:
+                args.append(tstate)
+            res = sync_for(params)(*args)
+            res = list(res) if isinstance(res, tuple) else [res]
+            g_mean = res.pop(0)
+            if ts.error_feedback:
+                new_ef = res.pop(0)
+            if adaptive:
+                new_t = res.pop(0)
+            if ts.metrics_gnorm:
+                gnorm = res.pop(0)
+            if ts.metrics_compression:
+                mine = res.pop(0)
+                cmetrics = type(mine)(*(compat.all_gather_stacked(f, mesh, dp) for f in mine))
+            loss = compat.psum(loss, mesh, dp) * (1.0 / n_dp)
+        else:
+            g_mean = g_leaves
+        if ts.metrics_gnorm and gnorm is None:
+            gnorm = global_norm(g_mean)
+        new_params, new_opt = opt.update(params, tree_unflatten(params, g_mean), opt_state, step)
+        metrics = {"loss": _full(loss, n_dp)}
+        if ts.metrics_gnorm:
+            metrics["gnorm"] = _full(gnorm, n_dp)
+        if cmetrics is not None:
+            metrics["compression"] = cmetrics
+        if live is not None:
+            metrics["live"] = live
+            metrics["live_count"] = _full(torch.sum(live), n_dp)
+        return new_params, new_opt, new_ef, new_t, metrics
+
+    if ts.error_feedback and adaptive:
+        def step_fn(params, opt_state, ef_state, tstate, batch_g, step):
+            return _step(params, opt_state, ef_state, tstate, batch_g, step)
+    elif ts.error_feedback:
+        def step_fn(params, opt_state, ef_state, batch_g, step):
+            p, o, e, _, m = _step(params, opt_state, ef_state, None, batch_g, step)
+            return p, o, e, m
+    elif adaptive:
+        def step_fn(params, opt_state, tstate, batch_g, step):
+            p, o, _, t, m = _step(params, opt_state, None, tstate, batch_g, step)
+            return p, o, t, m
+    else:
+        def step_fn(params, opt_state, batch_g, step):
+            p, o, _, _, m = _step(params, opt_state, None, None, batch_g, step)
+            return p, o, m
+    return step_fn

@@ -15,13 +15,22 @@ Caches are written in place: :func:`attention_decode` stores the new key
 and value into the cache's tensors and returns them with the new length.
 A cache's ``length`` is a host int, so the decode loop never waits on the
 device for it.
+
+Under autograd (the train path) each (q-chunk, kv-chunk) tile step is
+checkpointed, as the JAX package checkpoints its ``kv_step``: the backward
+keeps a tile's inputs (the running max, sum and accumulator), not its
+(B, qc, H, kc) probabilities, and recomputes the tile.  The recomputation
+repeats the forward's ops, so the gradients are autograd's through the
+plain loop.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 
@@ -91,6 +100,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     dev = q.device
     k32, v32 = k.float(), v.float()
 
+    # checkpoint the tiles wherever autograd records them
+    step = functools.partial(checkpoint, _kv_step, use_reentrant=False) if (
+        torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    ) else _kv_step
+
     outs = []
     for qi in range(nq):
         q_blk = q[:, qi * qc:(qi + 1) * qc].float()
@@ -101,21 +115,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         for ki in range(_kv_tiles(qi, qc, kc, nk, causal)):
             k_blk, v_blk = k32[:, ki * kc:(ki + 1) * kc], v32[:, ki * kc:(ki + 1) * kc]
             kpos = ki * kc + torch.arange(kc, device=dev)
-            s = torch.einsum("bqhd,bkhd->bqhk", q_blk, k_blk) * scale
             mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
             if causal:
                 mask &= qpos[:, None] >= kpos[None, :]
             if window is not None:
                 mask &= qpos[:, None] - kpos[None, :] < window
-            s = torch.where(mask[None, :, None, :], s, NEG_INF)
-            m_new = torch.maximum(m, torch.amax(s, dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + torch.sum(p, dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, v_blk)
-            m = m_new
+            m, l, acc = step(q_blk, k_blk, v_blk, mask, m, l, acc, scale)
         outs.append((acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _kv_step(q_blk: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor, mask: torch.Tensor,
+             m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, scale: float):
+    """One kv tile of the online softmax: (m, l, acc) -> their update."""
+    s = torch.einsum("bqhd,bkhd->bqhk", q_blk, k_blk) * scale
+    s = torch.where(mask[None, :, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + torch.sum(p, dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, v_blk)
+    return m_new, l, acc
 
 
 class KVCache(NamedTuple):
@@ -136,14 +156,14 @@ def _merge_heads(cfg, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
-                      causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (the encoder's, bidirectional); the
-    windowed causal form comes with the train path."""
+                      causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """Full-sequence self-attention: the train path's (causal, with the
+    config's sliding window) and the encoder's (bidirectional)."""
     q, k, v = _qkv(cfg, p, x)
     q = apply_positional(cfg, q, positions)
     k = apply_positional(cfg, k, positions)
     out = flash_attention(q, _repeat_kv(k, cfg.num_heads), _repeat_kv(v, cfg.num_heads),
-                          causal=causal)
+                          causal=causal, window=window)
     return _merge_heads(cfg, out, x) @ p["wo"]
 
 

@@ -25,8 +25,11 @@ for small sizes; ``transformer._ffn_apply`` switches to it as JAX does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 
@@ -79,7 +82,9 @@ def moe_apply(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
 
     Tokens go in groups of ``GROUP_TOKENS`` (the largest divisor of the
     token count at most that), one after another where JAX scans, and
-    capacity applies per group; ``aux`` is the mean over groups."""
+    capacity applies per group; ``aux`` is the mean over groups.  Under
+    autograd each group is checkpointed.  The gate gradients flow through
+    the gathered router probabilities; the expert ids take none."""
     lead, d = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, d)
     t = xf.shape[0]
@@ -89,7 +94,12 @@ def moe_apply(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
         return y.reshape(*lead, d).to(x.dtype), aux
     while t % g:
         g -= 1
-    ys, auxs = zip(*(_moe_group(cfg, p, xf[i:i + g]) for i in range(0, t, g)))
+    group = _moe_group
+    if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in p.values())):
+        # checkpoint each group, as JAX does: the backward keeps a group's
+        # input, not its gathered tokens and expert buffer
+        group = functools.partial(checkpoint, _moe_group, use_reentrant=False)
+    ys, auxs = zip(*(group(cfg, p, xf[i:i + g]) for i in range(0, t, g)))
     return torch.cat(ys).reshape(*lead, d).to(x.dtype), torch.stack(auxs).mean()
 
 

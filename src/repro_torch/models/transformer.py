@@ -23,18 +23,27 @@ of the zoo:
   same tensors (KV caches with the new length), so a caller that wants to
   keep a prefill's caches clones them.
 
-The MoE load-balance loss is computed (``moe.moe_apply`` returns it) but
-serving drops it.  The train path (``loss_fn``, the chunked cross-entropy,
-the decomposed train entries) and the logical-axis trees come with the
-train step.
+The train path: :func:`loss_fn` runs :func:`backbone` in ``"train"`` mode
+(full sequence, no caches; each unit checkpointed when ``cfg.remat``, as
+JAX checkpoints its scan step) and the chunked cross-entropy
+(:func:`chunked_xent`: a loop over sequence chunks that never builds the
+(B, S, V) logits), plus ``AUX_LOSS_WEIGHT`` times the MoE load-balance
+loss summed over units.  Its gradients are ``torch.autograd``'s.  The
+decomposed entries (:func:`outer_params`, :func:`embed_fn`,
+:func:`unit_fn`, :func:`sublayer_fn`, :func:`head_fn`) are the pieces the
+layer-streamed train step runs one unit at a time.  Serving computes the
+aux loss too and drops it.  The logical-axis trees come with the port's
+sharding rules.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 
@@ -44,6 +53,8 @@ from .layers import apply_norm, dense_init, dtype_of, mlp_apply, mlp_init, norm_
 from .moe import dense_moe_apply, moe_apply, moe_init
 from .rope import sincos_embedding, sincos_row
 from .ssm import SSMState, init_ssm_state, ssm_decode, ssm_forward, ssm_init
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,33 +193,46 @@ def _unit(tree: dict, i: int) -> dict:
     return {k: _unit(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _units(tree: dict, n: int) -> list:
+    """Every unit's slice of a tree stacked on the unit axis: views from one
+    ``unbind`` a leaf, so the backward stacks the units' gradients into the
+    stacked leaf's once."""
+    per = {k: _units(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: per[k][i] for k in per} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Sublayer / unit forward
 # ---------------------------------------------------------------------------
 
 
-def _ffn_apply(cfg, desc: SubDesc, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The sublayer's FFN on x (B, S, D); a few experts over few tokens take
-    the dense path, as in the JAX package."""
+def _ffn_apply(cfg, desc: SubDesc, p: dict, x: torch.Tensor):
+    """The sublayer's FFN on x (B, S, D): (y, aux), aux the MoE
+    load-balance loss (a float32 scalar; 0.0 without experts).  A few
+    experts over few tokens take the dense path, as in the JAX package."""
     if desc.ffn == "moe":
         if cfg.moe.num_experts <= 4 and x.shape[0] * x.shape[1] < 4096:
-            return dense_moe_apply(cfg, p["ffn"], x)[0]
-        return moe_apply(cfg, p["ffn"], x)[0]
-    return mlp_apply(cfg, p["ffn"], x)
+            return dense_moe_apply(cfg, p["ffn"], x)
+        return moe_apply(cfg, p["ffn"], x)
+    return mlp_apply(cfg, p["ffn"], x), 0.0
 
 
 def _sublayer_fwd(cfg, desc: SubDesc, p: dict, x: torch.Tensor, positions, mode: str, cache,
                   position, capacity=None):
-    """Mixer (attention or SSM) then FFN, pre-norm, for ``mode`` prefill |
-    encode | decode.  Returns (x, new_cache)."""
+    """Mixer (attention or SSM) then FFN, pre-norm, for ``mode`` train |
+    prefill | encode | decode.  Returns (x, new_cache, aux)."""
     h = apply_norm(cfg, p["ln1"], x)
     new_cache = cache
     win = cfg.sliding_window
     if desc.mixer == "ssm":
-        if mode == "prefill":
+        if mode == "train":
+            mx = ssm_forward(cfg, p["mixer"], h)
+        elif mode == "prefill":
             mx, new_cache = ssm_forward(cfg, p["mixer"], h, return_state=True)
         else:
             mx, new_cache = ssm_decode(cfg, p["mixer"], h, cache)
+    elif mode == "train":
+        mx = attention_forward(cfg, p["mixer"], h, positions, causal=True, window=win)
     elif mode == "prefill":
         mx, new_cache = attention_prefill(cfg, p["mixer"], h, positions, window=win,
                                           capacity=capacity)
@@ -218,38 +242,47 @@ def _sublayer_fwd(cfg, desc: SubDesc, p: dict, x: torch.Tensor, positions, mode:
         mx, new_cache = attention_decode(cfg, p["mixer"], h, cache, position, window=win)
     x = x + mx
     if desc.ffn == "none":
-        return x, new_cache
-    return x + _ffn_apply(cfg, desc, p, apply_norm(cfg, p["ln2"], x)), new_cache
+        return x, new_cache, 0.0
+    y, aux = _ffn_apply(cfg, desc, p, apply_norm(cfg, p["ln2"], x))
+    return x + y, new_cache, aux
 
 
 def _unit_fwd(cfg, descs: list, p: dict, x: torch.Tensor, positions, mode: str, cache,
               position, capacity=None):
     """One unit: a sublayer, or a superblock's sublayers in order with their
-    caches under ``sub{j}``.  Returns (x, new_cache)."""
+    caches under ``sub{j}``.  Returns (x, new_cache, aux)."""
     if len(descs) == 1:
         return _sublayer_fwd(cfg, descs[0], p, x, positions, mode, cache, position, capacity)
-    new_cache = {}
+    new_cache, aux_total = {}, 0.0
     for j, d in enumerate(descs):
         sub = cache[f"sub{j}"] if cache is not None else None
-        x, new_cache[f"sub{j}"] = _sublayer_fwd(cfg, d, p[f"sub{j}"], x, positions, mode, sub,
-                                                position, capacity)
-    return x, new_cache
+        x, new_cache[f"sub{j}"], aux = _sublayer_fwd(cfg, d, p[f"sub{j}"], x, positions, mode,
+                                                     sub, position, capacity)
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total
 
 
-def _unit_fwd_with_cross(cfg, descs: list, p_u: dict, x: torch.Tensor, positions, enc_out,
-                         capacity=None):
-    """One unit's prefill, computing cross-KV from ``enc_out`` as needed."""
+def _unit_fwd_with_cross(cfg, descs: list, p_u: dict, x: torch.Tensor, positions, mode: str,
+                         enc_out, capacity=None):
+    """One unit's train or prefill forward, computing cross-KV from
+    ``enc_out`` as needed.  Returns (x, cache or None, aux)."""
     if not cfg.enc_dec:
-        return _unit_fwd(cfg, descs, p_u, x, positions, "prefill", None, None, capacity)
+        return _unit_fwd(cfg, descs, p_u, x, positions, mode, None, None, capacity)
     h = apply_norm(cfg, p_u["ln1"], x)
-    mx, kv_cache = attention_prefill(cfg, p_u["mixer"], h, positions,
-                                     window=cfg.sliding_window, capacity=capacity)
+    kv_cache = None
+    if mode == "prefill":
+        mx, kv_cache = attention_prefill(cfg, p_u["mixer"], h, positions,
+                                         window=cfg.sliding_window, capacity=capacity)
+    else:
+        mx = attention_forward(cfg, p_u["mixer"], h, positions, causal=True,
+                               window=cfg.sliding_window)
     x = x + mx
     hx = apply_norm(cfg, p_u["lnx"], x)
     ekv = cross_kv(cfg, p_u["cross"], enc_out)
     x = x + cross_attention_forward(cfg, p_u["cross"], hx, ekv)
-    x = x + mlp_apply(cfg, p_u["ffn"], apply_norm(cfg, p_u["ln2"], x))
-    return x, {"self": kv_cache, "cross_kv": ekv}
+    y, aux = _ffn_apply(cfg, descs[0], p_u, apply_norm(cfg, p_u["ln2"], x))
+    cache = {"self": kv_cache, "cross_kv": ekv} if mode == "prefill" else None
+    return x + y, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +324,9 @@ def encode_frames(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(dtype_of(cfg.compute_dtype))
     x = x + sincos_embedding(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[:2])
-    blocks, desc = params["encoder"]["blocks"], SubDesc("attn", "mlp")
-    for i in range(cfg.num_enc_layers):
-        x, _ = _sublayer_fwd(cfg, desc, _unit(blocks, i), x, positions, "encode", None, None)
+    desc = SubDesc("attn", "mlp")
+    for p_l in _units(params["encoder"]["blocks"], cfg.num_enc_layers):
+        x, _, _ = _sublayer_fwd(cfg, desc, p_l, x, positions, "encode", None, None)
     return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
@@ -351,28 +384,115 @@ def _with_lengths(caches, unit):
     return caches
 
 
-def backbone(cfg, params: dict, batch: Batch, capacity=None):
-    """Embed -> units (prefill) -> final norm.  Returns (hidden, caches)."""
+def backbone(cfg, params: dict, batch: Batch, mode: str = "prefill", capacity=None):
+    """Embed -> units -> final norm, in ``mode`` train | prefill.  Returns
+    (hidden, caches (None in train mode), aux summed over the units).  In
+    train mode each unit is checkpointed when ``cfg.remat``: the backward
+    keeps a unit's input and recomputes the unit."""
     descs, units = _decoder_descs(cfg)
-    x = _embed_tokens(cfg, params, batch.tokens)
-    if cfg.vlm_patches:
-        x = _inject_vision(cfg, params, x, batch.patches)
+    x = embed_fn(cfg, params, batch)
     positions = _positions_for(cfg, batch)
     enc_out = encode_frames(cfg, params, batch.frames) if cfg.enc_dec else None
-    caches = []
-    for i in range(units):
-        x, c = _unit_fwd_with_cross(cfg, descs, _unit(params["blocks"], i), x, positions,
-                                    enc_out, capacity)
+    unit = functools.partial(_unit_fwd_with_cross, cfg, descs)
+    if mode == "train" and cfg.remat:
+        unit = functools.partial(checkpoint, unit, use_reentrant=False)
+    caches, aux = [], 0.0
+    for p_u in _units(params["blocks"], units):
+        x, c, aux_u = unit(p_u, x, positions, mode, enc_out, capacity)
         caches.append(c)
-    return apply_norm(cfg, params["final_norm"], x), _stack_caches(caches)
+        aux = aux + aux_u
+    caches = _stack_caches(caches) if mode == "prefill" else None
+    return apply_norm(cfg, params["final_norm"], x), caches, aux
 
 
 def prefill(cfg, params: dict, batch: Batch, capacity=None):
     """Returns (last-token logits (B, V) float32, caches).  ``capacity``
     reserves cache room for subsequent decode steps."""
-    hidden, caches = backbone(cfg, params, batch, capacity=capacity)
+    hidden, caches, _ = backbone(cfg, params, batch, "prefill", capacity=capacity)
     last = hidden[:, -1]
     return (last @ lm_head_weights(cfg, params).to(last.dtype)).float(), caches
+
+
+# ---------------------------------------------------------------------------
+# The train path
+# ---------------------------------------------------------------------------
+
+
+def chunked_xent(cfg, params: dict, hidden: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy of the LM head over the labels >= 0 (-1 masks a
+    position), in sequence chunks of the largest divisor of S up to
+    ``chunk``: one (B, chunk, V) float32 logits tile at a time, never (B,
+    S, V).  The sums and the count run in float32 chunk after chunk, as
+    JAX's scan carries them."""
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    w = lm_head_weights(cfg, params).to(dtype_of(cfg.compute_dtype))
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // c):
+        hc, lc = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        logits = (hc @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, torch.clamp_min(lc, 0)[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        tot = tot + torch.sum((lse - ll) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def chunked_xent_with(cfg, params_for_head: dict, hidden: torch.Tensor, labels: torch.Tensor,
+                      chunk: int = 512) -> torch.Tensor:
+    """:func:`chunked_xent` against the head of ``params_for_head`` (the
+    outer params of the streamed step)."""
+    return chunked_xent(cfg, params_for_head, hidden, labels, chunk)
+
+
+def loss_fn(cfg, params: dict, batch: Batch) -> torch.Tensor:
+    """The train loss: chunked cross-entropy plus ``AUX_LOSS_WEIGHT`` times
+    the MoE load-balance loss."""
+    hidden, _, aux = backbone(cfg, params, batch, "train")
+    return chunked_xent(cfg, params, hidden, batch.labels) + AUX_LOSS_WEIGHT * aux
+
+
+def outer_params(params: dict) -> dict:
+    """Everything but the stacked units: embedding, head, norms, projector,
+    encoder."""
+    return {k: v for k, v in params.items() if k != "blocks"}
+
+
+def embed_fn(cfg, outer: dict, batch: Batch) -> torch.Tensor:
+    """Embedding + modality injection; returns h0 (B, S, D)."""
+    x = _embed_tokens(cfg, outer, batch.tokens)
+    if cfg.vlm_patches:
+        x = _inject_vision(cfg, outer, x, batch.patches)
+    return x
+
+
+def unit_fn(cfg, unit_params: dict, h: torch.Tensor, positions: torch.Tensor):
+    """One unit in train mode.  Returns (h_out, aux)."""
+    descs, _ = _decoder_descs(cfg)
+    h2, _, aux = _unit_fwd(cfg, descs, unit_params, h, positions, "train", None, None)
+    return h2, aux
+
+
+def num_sublayers(cfg) -> int:
+    descs, _ = _decoder_descs(cfg)
+    return len(descs)
+
+
+def sublayer_fn(cfg, idx: int, sub_params: dict, h: torch.Tensor, positions: torch.Tensor):
+    """Sublayer ``idx`` of a (hybrid) unit in train mode.  Returns (h_out, aux)."""
+    descs, _ = _decoder_descs(cfg)
+    h2, _, aux = _sublayer_fwd(cfg, descs[idx], sub_params, h, positions, "train", None, None)
+    return h2, aux
+
+
+def head_fn(cfg, outer: dict, hidden: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """Final norm + chunked cross-entropy."""
+    hidden = apply_norm(cfg, outer["final_norm"], hidden)
+    return chunked_xent_with(cfg, outer, hidden, batch.labels)
 
 
 def decode_step(cfg, params: dict, token: torch.Tensor, caches, position: int):
@@ -397,7 +517,7 @@ def decode_step(cfg, params: dict, token: torch.Tensor, caches, position: int):
             x = y + mlp_apply(cfg, p_u["ffn"], apply_norm(cfg, p_u["ln2"], y))
             new_u = {"self": new_self, "cross_kv": cache_u["cross_kv"]}
         else:
-            x, new_u = _unit_fwd(cfg, descs, p_u, x, None, "decode", cache_u, position)
+            x, new_u, _ = _unit_fwd(cfg, descs, p_u, x, None, "decode", cache_u, position)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = (x[:, 0] @ lm_head_weights(cfg, params).to(x.dtype)).float()
     return logits, _with_lengths(caches, new_u)

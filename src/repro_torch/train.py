@@ -10,6 +10,12 @@ parallel instead: every rank of the process group computes its own
 client's gradient and syncs it through ``dist.train_step.make_sync_fn``.
 On the card every sync runs the port's CUDA kernels.
 
+``lm_replay_step`` is one step of the LM zoo's data-parallel train step
+(``dist.train_step.make_train_step``) with every client in this process:
+the clients' gradients, the one-device replay of the sync
+(``dist.reference.reference_sync_state``) and the same update, which each
+rank of a mesh run must match bit for bit.
+
 ``train_clients`` is the counterpart of ``benchmarks/common.py::
 train_clients``, the paper's §V experiment: each client compresses every
 gradient leaf on its own (``core.compressors``, the sort-based per-tensor
@@ -27,11 +33,12 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.codecs import bucket_state_sizes
-from repro_torch.core.compressors import (CompressorConfig, compress_decompress_leaves,
-                                             plan_buckets)
+from repro_torch.core.compressors import (CompressorConfig, bucket_concat,
+                                             compress_decompress_leaves, plan_buckets)
 from repro_torch.core.error_feedback import compress_with_feedback, init_error
 from repro_torch.data.synthetic import client_batches, make_templates, shapes_batch
 from repro_torch.dist import compat
+from repro_torch.dist import train_step as tsmod
 from repro_torch.dist.reference import reference_sync, reference_sync_state
 from repro_torch.dist.train_step import TrainStepConfig, init_ef_state, make_sync_fn
 from repro_torch.elastic.schedule import ElasticConfig, live_mask
@@ -133,7 +140,8 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
         raise ValueError(f"dp_sizes {dp_sizes} do not multiply to n_clients={n_clients}")
     _float32_and_deterministic()
     ts = TrainStepConfig(sync=sync, error_feedback=error_feedback, bucket_mb=bucket_mb,
-                         elastic=elastic, compressor=CompressorConfig(method=method, bits=bits))
+                         elastic=elastic, compressor=CompressorConfig(method=method, bits=bits),
+                         metrics_gnorm=False)
     templates = make_templates(prng.key(42), device=device)
     params = init_smallnet(prng.key(0), device=device)
     opt = momentum_sgd(lr=0.01, momentum=0.9, weight_decay=5e-4)
@@ -155,7 +163,7 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
             mean, ef, _, _ = reference_sync_state(ts, stacked, dp_sizes, key, ef=ef, live=live)
         else:
             mean = reference_sync(ts, stacked, dp_sizes, key, live=live)
-        params, state = opt.update(params, tree_unflatten(params, mean), state)
+        params, state = opt.update(params, tree_unflatten(params, mean), state, i)
         hist.append(float(torch.mean(losses)))
     return hist
 
@@ -181,12 +189,47 @@ def _train_mesh(ts: TrainStepConfig, mesh: compat.Mesh, templates, params, opt, 
             mean, ef = out
         else:
             mean = out
-        params, state = opt.update(params, tree_unflatten(params, mean), state)
+        params, state = opt.update(params, tree_unflatten(params, mean), state, i)
         # the clients' losses, gathered once a step outside the sync
         everyone = compat.all_gather_stacked(losses[0], mesh, mesh.axis_names)
         hist.append(float(torch.mean(everyone)))
     return hist
 
+
+def lm_replay_step(cfg, ts: TrainStepConfig, opt, dp_sizes: tuple, params: dict, opt_state,
+                   ef, batch, step: int):
+    """One step of :func:`~repro_torch.dist.train_step.make_train_step` on
+    the mesh ``dp_sizes`` with every client in this process: each client's
+    loss and gradients in client order, ``reference_sync_state`` over the
+    stacked float32 gradients under the step key, the update.  ``ef``: the
+    stacked (n, m) EF rows, or None.  Returns ``(params, opt_state, ef,
+    metrics)``, ``metrics`` the mesh step's: ``loss`` (the clients' losses
+    added in order, times the float32 1/n) and ``gnorm`` (of the mean
+    buckets), each (n,).  Where every client's gradient is bitwise the
+    one its rank computes (fact F10) and the rank count is 2 (so the
+    mesh's sum of two losses has one order), every rank of the mesh run
+    returns these bits."""
+    n = math.prod(dp_sizes)
+    split_batch, axes = tsmod._client_batch(batch, n)
+    streamed = ts.streamed and not cfg.enc_dec
+    losses, grads = [], []
+    for c in range(n):
+        loss, g = tsmod._loss_and_grads(cfg, params, tsmod.client_row(split_batch, axes, c),
+                                        streamed)
+        losses.append(loss)
+        grads.append([x.to(torch.float32) for x in tree_leaves(g)])
+    stacked = [torch.stack([g[j] for g in grads]) for j in range(len(grads[0]))]
+    key = prng.fold_in(prng.key(_KEY_SEED), step)
+    live = None if ts.elastic is None else live_mask(ts.elastic, step, n, stacked[0].device)
+    mean, ef, _, _ = reference_sync_state(ts, stacked, tuple(dp_sizes), key, ef=ef, live=live)
+    bp = plan_buckets([x[0].numel() for x in stacked], ts.bucket_elements)
+    gnorm = tsmod.global_norm(bucket_concat(mean, bp))
+    params, opt_state = opt.update(params, tree_unflatten(params, mean), opt_state, step)
+    total = losses[0]
+    for x in losses[1:]:
+        total = total + x
+    metrics = {"loss": tsmod._full(total * (1.0 / n), n), "gnorm": tsmod._full(gnorm, n)}
+    return params, opt_state, ef, metrics
 
 
 def train_clients(method: str, bits: int, *, rounds: int = 80, n_clients: int = 8,
@@ -243,7 +286,7 @@ def train_clients(method: str, bits: int, *, rounds: int = 80, n_clients: int = 
                         g = compress_decompress_leaves(leaf_cfgs, g, keys)
             grads.append(g)
         gmean = [_mean([g[j] for g in grads]) for j in range(n_leaves)]
-        params, state = opt.update(params, tree_unflatten(params, gmean), state)
+        params, state = opt.update(params, tree_unflatten(params, gmean), state, i)
         hist.append(float(_mean(list(losses))))
     imgs, labels = shapes_batch(templates, 10_000, eval_batch)
     return float(accuracy(params, imgs, labels)), hist

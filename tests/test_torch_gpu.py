@@ -976,7 +976,8 @@ def _mesh_gpu_rank(rank: int, world: int, init: str, out_dir: str) -> None:
         for mode, dp in MESH_MODES.items():
             try:
                 ts = TrainStepConfig(sync=mode, bucket_mb=1.0 / 64.0, error_feedback=mode != "dsgd",
-                                     compressor=CompressorConfig(method="tnqsgd", bits=3))
+                                     compressor=CompressorConfig(method="tnqsgd", bits=3),
+                                     metrics_gnorm=False)
                 bp = plan_buckets([math.prod(s) for s in MESH_SHAPES], ts.bucket_elements)
                 ef = [_heavy(gen, world * m, dev, 1e-4).reshape(world, m)
                       for m in bucket_state_sizes(ts.compressor, bp.sizes)]

@@ -170,7 +170,7 @@ def _jax_rank(rank: int, world: int, init: str, out_dir: str) -> None:
         for name, (sync, dp, live) in SYNC_CASES.items():
             ef_on = sync != "dsgd"
             ts = train_step.TrainStepConfig(
-                sync=sync, bucket_mb=BUCKET_MB, error_feedback=ef_on,
+                sync=sync, bucket_mb=BUCKET_MB, error_feedback=ef_on, metrics_gnorm=False,
                 compressor=CompressorConfig(method="tnqsgd", bits=3),
                 elastic=None if live is None else ElasticConfig(rate=0.5))
             live_t = None if live is None else torch.tensor(live, dtype=torch.float32)

@@ -53,10 +53,11 @@ from repro_torch.adaptive.telemetry import init_telemetry, peer_row, stack_rows 
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.codecs import (bucket_cfgs, bucket_state_sizes, get_codec,  # noqa: E402
                                      size_adaptive_plan)
-from repro_torch.core.compressors import CompressorConfig, plan_buckets  # noqa: E402
+from repro_torch.core.compressors import CompressorConfig, bucket_concat, plan_buckets  # noqa: E402
 from repro_torch.dist import compat  # noqa: E402
 from repro_torch.dist.reference import reference_sync, reference_sync_state  # noqa: E402
-from repro_torch.dist.train_step import TrainStepConfig, init_ef_state, make_sync_fn  # noqa: E402
+from repro_torch.dist.train_step import (TrainStepConfig, global_norm, init_ef_state,  # noqa: E402
+                                          make_sync_fn)
 from repro_torch.elastic import ElasticConfig  # noqa: E402
 
 LEAF_SHAPES = [(64, 48), (37, 61), (2048,), (999,)]
@@ -228,6 +229,7 @@ def _run_case(mesh, rank: int, dp: tuple, kw: dict, live_t, calls: list) -> dict
     mean = out.pop(0)
     new_ef = out.pop(0) if ts.error_feedback else None
     new_t = out.pop(0) if ts.adaptive is not None else None
+    gnorm = out.pop(0) if ts.metrics_gnorm else None
     cm = out.pop(0) if ts.metrics_compression else None
     dsgd = ts.sync == "dsgd"
     rtol = DSGD_RTOL if dsgd else 0.0
@@ -245,6 +247,9 @@ def _run_case(mesh, rank: int, dp: tuple, kw: dict, live_t, calls: list) -> dict
         _same(list(new_t), list(peer_row(w_t, rank)), "telemetry field")
     if cm is not None:
         _same(list(cm), [f[rank] for f in w_cm], "metrics field")
+    # the gnorm of the replay's mean, taken over its buckets as the sync does
+    _same([gnorm], [global_norm(bucket_concat(w_mean, BP) if ts.bucket_mb > 0 else w_mean)],
+          "gnorm", rtol)
     if ts.bucket_mb > 0:
         mode = "two_phase" if ts.sync == "hierarchical" and len(dp) == 1 else ts.sync
         budget = get_codec(ts.compressor.method).collective_budget(mode, BP.n_buckets)

@@ -54,7 +54,7 @@ def test_momentum_sgd_decays_weights_only():
     opt = momentum_sgd(lr=0.1, momentum=0.5, weight_decay=0.1)
     params = {"w": torch.ones(2, 2), "b": torch.ones(2)}
     grads = {"w": torch.zeros(2, 2), "b": torch.zeros(2)}
-    p, s = opt.update(params, grads, opt.init(params))
+    p, s = opt.update(params, grads, opt.init(params), 0)
     assert torch.allclose(p["w"], torch.full((2, 2), 0.99)) and torch.equal(p["b"], params["b"])
     assert torch.allclose(s["w"], torch.full((2, 2), 0.1))
 
