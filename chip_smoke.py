@@ -128,7 +128,16 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    and final parameters bitwise equal, the loss falling, each step's
    launches K1, K2 and K4 once a bucket, the peak memory under 70 GB, each
    step's host-clock split (forward+backward, plan, draw, kernels,
-   optimizer, the rest); (b) 2 gloo ranks on ``cuda:0``, the reduced llama
+   optimizer, the rest); the second run with observability on
+   (``--obs-dir``, ``--obs-every 1``): still bitwise the first, 3
+   ``metrics`` events of 10 buckets, each the step's ``metrics_event``
+   (bits 3, rank 0, the codec's wire bytes, α > 0, clip fraction in [0, 1],
+   EF norm 0 at step 0 only, realized and predicted E_TQ finite and > 0),
+   3 ``train.step`` spans each at least the step's synchronized time, the
+   report CLI (``python -m repro_torch.obs report --json``) exiting 0 with 3
+   steps, 10 buckets and the one phase; it prints each bucket's
+   realized/predicted ratio and the step ms and peak beside the first
+   run's; (b) 2 gloo ranks on ``cuda:0``, the reduced llama
    in float32, faithful and two_phase tnqsgd with EF, 3 steps: every
    rank's params, EF rows, loss and gnorm bitwise the in-process replay
    (``train.lm_replay_step``), each rank's launches as predicted; (c) the
@@ -138,6 +147,12 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    stepper on the reduced llama (replan every 2, 5 steps), each step card
    against CPU from the card's state: the same bits adopted, the new
    telemetry within rtol 1e-5 up to elements at a bin edge (fact F8);
+   (e) ``launch.train.main`` spawning 2 gloo ranks on ``cuda:0`` with
+   ``--obs-dir``, the reduced llama, ``--adaptive --replan-every 2`` and
+   dropout 0.2, 5 steps: rank 0's log alone, its dropout events the host
+   replay of ``live_mask``, 5 ``train.step`` spans and one
+   ``adaptive.replan`` span a replan, the drift events those a fresh
+   monitor gives on the logged rows and live fractions;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -797,7 +812,7 @@ def training_phase(card: str, device: str = "cuda") -> dict:
     kernel_ops = ("ef_correct_stats", "bucket_stats", "codebook_encode_pack_residual",
                   "codebook_encode_pack", "codebook_decode_reduce", "codebook_decode_rows")
 
-    def full_width_run() -> tuple[dict, list, dict]:
+    def full_width_run(extra=()) -> tuple[dict, list, dict]:
         split = _Split()
         steps = []
         saved = {"make_train_step": launcher.make_train_step,
@@ -816,7 +831,8 @@ def training_phase(card: str, device: str = "cuda") -> dict:
                 steps.append({"split_ms": dict(split.ms),
                               "peak_bytes": torch.cuda.max_memory_allocated(),
                               "launches": {k: after[k] - before[k] for k in after
-                                           if after[k] > before[k]}})
+                                           if after[k] > before[k]},
+                              "compression": out[-1].get("compression")})
                 return out
             return step
 
@@ -832,7 +848,7 @@ def training_phase(card: str, device: str = "cuda") -> dict:
             setattr(ops, k, split.wrap("kernels", saved[f"ops.{k}"]))
         kernels.reset_launch_counts()
         try:
-            out = launcher.run(TRAIN_ARGV)
+            out = launcher.run(TRAIN_ARGV + list(extra))
         finally:
             launcher.make_train_step, launcher.get_optimizer = (saved["make_train_step"],
                                                                 saved["get_optimizer"])
@@ -853,14 +869,25 @@ def training_phase(card: str, device: str = "cuda") -> dict:
     final = [t.cpu() for t in tree_leaves(first["params"])]
     del first
     torch.cuda.empty_cache()
-    second, steps_b, counts_b = full_width_run()
+    # run 2 with observability on (every step's metrics event, spans and
+    # drift checks): it may change no bit of run 1
+    obs_dir = tempfile.TemporaryDirectory()
+    t0 = time.time()
+    second, steps_b, counts_obs = full_width_run(["--obs-dir", obs_dir.name, "--obs-every", "1"])
+    wall_b = time.time() - t0
+    check(counts_obs == counts_a, f"train: launches of the run with observability {counts_obs}, "
+                                  f"run 1's {counts_a}")
+    check(second["obs"] is not None and second["obs"]["n_written"] > 0,
+          f"train: the run with observability wrote no events: {second['obs']}")
     check([h["loss"] for h in second["history"]] == [h["loss"] for h in hist]
           and [h["gnorm"] for h in second["history"]] == [h["gnorm"] for h in hist],
           f"train: the second full-width run's losses differ: {second['history']} vs {hist}")
     check(all(torch.equal(a, b.cpu()) for a, b in zip(final, tree_leaves(second["params"]),
                                                        strict=True)),
           "train: the second full-width run's final parameters differ")
-    del second, final
+    sizes_a = tsmod.local_bucket_sizes(second["params"], tsmod.TrainStepConfig(bucket_mb=4.0))
+    second["params"] = second["opt_state"] = second["ef_state"] = None
+    del final
     torch.cuda.empty_cache()
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"]) for h in hist),
           f"train: non-finite loss or gnorm {hist}")
@@ -890,9 +917,14 @@ def training_phase(card: str, device: str = "cuda") -> dict:
     for label, steps in (("first", steps_a), ("second", steps_b)):
         for i, s in enumerate(steps):
             print("[time] " + json.dumps({
-                "train": "llama3.2-1b", "run": label, "step": i, "step_ms": s["step_ms"],
-                "split_ms": s["split_ms"], "max_memory_allocated_bytes": s["peak_bytes"],
-                "batch": 4, "seq": 2048, "sync": "faithful", "ranks": 1, "card": card}))
+                "train": "llama3.2-1b", "run": label, "obs": label == "second", "step": i,
+                "step_ms": s["step_ms"], "split_ms": s["split_ms"],
+                "max_memory_allocated_bytes": s["peak_bytes"], "batch": 4, "seq": 2048,
+                "sync": "faithful", "ranks": 1, "card": card}))
+    with obs_dir:
+        obs_checks(obs_dir.name, steps_a, steps_b, n_buckets, sizes_a, second["obs"], wall_a,
+                   wall_b, card)
+    del second
 
     # (b) 2 gloo ranks on cuda:0 against the in-process replay
     cfg_r = reduced(get_config("llama3.2-1b"))
@@ -1048,8 +1080,159 @@ def training_phase(card: str, device: str = "cuda") -> dict:
           f"each step card against CPU from the card's state: plans {plans} on both; "
           f"telemetry apart {json.dumps(apart)} (a mean against its bucket's RMS), at most "
           f"{moved:g} elements a step in another bin; last loss {float(m['loss'][0]):.6f}")
+    # (e) the launcher with observability on: 2 gloo ranks on cuda:0 spawned
+    # by launcher.main, the reduced llama, adaptive replans every 2 steps,
+    # a dropout schedule, 5 steps
+    launcher_obs_phase(device)
     print(f"[train] phase wall time {time.time() - t_phase:.1f} s")
     return {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in set(counts_a) | set(counts_b)}
+
+
+def obs_checks(obs_dir: str, steps_a: list, steps_b: list, n_buckets: int, sizes: list,
+               obs_out: dict, wall_a: float, wall_b: float, card: str) -> None:
+    """Phase 4d (a), run 2: the events that the launcher's ``--obs-dir``
+    wrote at full width, held to the steps' captured metrics and times, and
+    the report CLI on them; prints the per-bucket realized/predicted E_TQ
+    and the cost of observability beside run 1."""
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.obs import metrics_event, read_events
+
+    events = read_events(obs_dir)
+    metrics = [e for e in events if e["kind"] == "metrics"]
+    spans = [e for e in events if e["kind"] == "span"]
+    drift = [e for e in events if e["kind"] == "drift"]
+    check(len(events) == obs_out["n_written"], f"obs (a): {len(events)} events read back, "
+                                               f"{obs_out['n_written']} written")
+    check([e["step"] for e in metrics] == list(range(TRAIN_STEPS))
+          and all(len(e["buckets"]) == n_buckets for e in metrics),
+          f"obs (a): metrics events {[(e['step'], len(e['buckets'])) for e in metrics]}")
+    import torch
+
+    # the metric's wire bytes are a float32 leaf (JAX's too): above 2**24
+    # bytes they are the codec's count rounded to float32
+    cfg = CompressorConfig(method="tnqsgd", bits=3)
+    wire = [float(torch.tensor(get_codec("tnqsgd").wire_bytes(cfg, n), dtype=torch.float32))
+            for n in sizes]
+    for i, (ev, s) in enumerate(zip(metrics, steps_b, strict=True)):
+        check(ev == metrics_event(i, s["compression"]),
+              f"obs (a): step {i}'s metrics event is not the step's metrics_event")
+        for r, w in zip(ev["buckets"], wire, strict=True):
+            ok = (r["bits"] == 3 and r["rank"] == 0 and r["wire_bytes"] == w and r["alpha"] > 0
+                  and 0 <= r["clip_frac"] <= 1 and (r["ef_norm"] == 0) == (i == 0)
+                  and all(math.isfinite(r[k]) and r[k] > 0 for k in ("realized_mse",
+                                                                    "predicted_mse")))
+            check(ok, f"obs (a): step {i} bucket {r['bucket']}: {r} (wire bytes {w})")
+    steps = [e for e in spans if e["name"] == "train.step"]
+    check([e["step"] for e in steps] == list(range(TRAIN_STEPS)) and len(steps) == len(spans),
+          f"obs (a): spans {[(e['name'], e.get('step')) for e in spans]}")
+    for e, s in zip(steps, steps_b, strict=True):
+        check(e["dur_s"] * 1e3 >= s["step_ms"], f"obs (a): step {e['step']}'s span "
+                                                f"{e['dur_s'] * 1e3:.1f} ms < its step "
+                                                f"{s['step_ms']:.1f} ms")
+    check(obs_out["drift"] == drift, "obs (a): run()'s drift events are not the logged ones")
+    summary_path = os.path.join(obs_dir, "summary.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.obs", "report", "--dir", obs_dir,
+                        "--json", summary_path], capture_output=True, text=True, timeout=120,
+                       env=env, cwd=str(ROOT))
+    check(r.returncode == 0, f"obs (a): the report CLI exited {r.returncode}: {r.stderr[-2000:]}")
+    summary = json.loads(pathlib.Path(summary_path).read_text())
+    check(summary["n_steps"] == TRAIN_STEPS and len(summary["buckets"]) == n_buckets
+          and [(p["name"], p["count"]) for p in summary["phases"]] == [("train.step",
+                                                                         TRAIN_STEPS)],
+          f"obs (a): report summary {summary['n_steps']} steps, {len(summary['buckets'])} "
+          f"buckets, phases {summary['phases']}")
+    ratios = [[r["realized_mse"] / r["predicted_mse"] for r in e["buckets"]] for e in metrics]
+    for i, (ev, rs) in enumerate(zip(metrics, ratios)):
+        print(f"[obs] llama3.2-1b step {i}: realized/predicted E_TQ per bucket "
+              f"{json.dumps([round(x, 4) for x in rs])}; alpha "
+              f"{json.dumps([float('%.4g' % r['alpha']) for r in ev['buckets']])}; clip "
+              f"{json.dumps([round(r['clip_frac'], 5) for r in ev['buckets']])}")
+    for e in drift:
+        print(f"[obs] drift: {e['message']}")
+    step_a = [s["step_ms"] for s in steps_a[1:]]
+    step_b = [s["step_ms"] for s in steps_b[1:]]
+    peak_a = max(s["peak_bytes"] for s in steps_a) / 1e9
+    peak_b = max(s["peak_bytes"] for s in steps_b) / 1e9
+    print(f"[obs] (a) run 2 with --obs-dir --obs-every 1: bitwise run 1; {len(events)} events "
+          f"({len(metrics)} metrics of {n_buckets} buckets, {len(spans)} spans, {len(drift)} "
+          f"drift); spans {json.dumps([round(e['dur_s'] * 1e3, 1) for e in steps])} ms; a step "
+          f"after the first {json.dumps([round(x, 1) for x in step_b])} ms against run 1's "
+          f"{json.dumps([round(x, 1) for x in step_a])}; peak {peak_b:.2f} GB against "
+          f"{peak_a:.2f}; runs {wall_a:.1f} / {wall_b:.1f} s; report CLI exit 0")
+    print("[time] " + json.dumps({
+        "obs": "llama3.2-1b", "step_ms_after_first_run1": step_a,
+        "step_ms_after_first_run2": step_b, "span_ms": [e["dur_s"] * 1e3 for e in steps],
+        "peak_gb_run1": peak_a, "peak_gb_run2": peak_b, "ratios": ratios,
+        "drift": [e["message"] for e in drift], "card": card}))
+
+
+OBS_E_STEPS = 5
+OBS_E_REPLAN = 2
+OBS_E_DROPOUT = 0.2    # the counter hash (seed 0x17E) drops peer 0 of 2 at steps 0, 2 and 4
+
+
+def launcher_obs_phase(device: str) -> None:
+    """Phase 4d (e): ``launch.train.main`` with ``--fake-devices 2 --obs-dir``
+    on the reduced llama, adaptive and elastic; rank 0's events against the
+    host replay of the schedule and a fresh drift monitor."""
+    import tempfile
+
+    from repro_torch.elastic import ElasticConfig
+    from repro_torch.elastic.schedule import live_mask
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs import DriftMonitor, read_events
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as od:
+        argv = ["--arch", "llama3.2-1b", "--reduced", "--device", device, "--batch", "4",
+                "--seq", "64", "--sync", "faithful", "--ef", "--steps", str(OBS_E_STEPS),
+                "--fake-devices", "2", "--adaptive", "--replan-every", str(OBS_E_REPLAN),
+                "--dropout-rate", str(OBS_E_DROPOUT), "--obs-dir", od]
+        try:
+            rc = launcher.main(argv)
+        except Exception as e:  # a rank raised: report its traceback
+            fail(f"obs (e): the launcher failed: {e}")
+        check(rc == 0, f"obs (e): the launcher returned {rc}")
+        files = sorted(os.listdir(od))
+        check(files == ["events.jsonl"], f"obs (e): files {files}: rank 0 alone writes")
+        events = read_events(od)
+    spans = [e for e in events if e["kind"] == "span"]
+    metrics = [e for e in events if e["kind"] == "metrics"]
+    dropouts = [e for e in events if e["kind"] == "dropout"]
+    drift = [e for e in events if e["kind"] == "drift"]
+    check([e["step"] for e in spans if e["name"] == "train.step"] == list(range(OBS_E_STEPS)),
+          f"obs (e): train.step spans {[e.get('step') for e in spans]}")
+    replans = [i for i in range(OBS_E_STEPS) if i and i % OBS_E_REPLAN == 0]
+    n_replan = sum(e["name"] == "adaptive.replan" for e in spans)
+    check(n_replan == len(replans), f"obs (e): {n_replan} adaptive.replan spans for the "
+                                    f"replans at steps {replans}")
+    check([e["step"] for e in metrics] == list(range(OBS_E_STEPS)),
+          f"obs (e): metrics events at steps {[e['step'] for e in metrics]}")
+    want = []
+    for i in range(OBS_E_STEPS):
+        lv = live_mask(ElasticConfig(rate=OBS_E_DROPOUT), i, 2)
+        if float(lv.sum()) < 2:
+            want.append({"v": 1, "kind": "dropout", "step": i, "live": int(lv.sum()),
+                         "n_peers": 2, "dropped": [p for p in range(2) if float(lv[p]) == 0.0]})
+    check(want and dropouts == want, f"obs (e): dropout events {dropouts}, the schedule's {want}")
+    mon = DriftMonitor(warn=False)
+    live = {e["step"]: e["live"] / e["n_peers"] for e in dropouts}
+    for ev in metrics:
+        mon.check_ratio([r["realized_mse"] for r in ev["buckets"]],
+                        [r["predicted_mse"] for r in ev["buckets"]], step=ev["step"])
+        mon.check_participation(live.get(ev["step"], 1.0), step=ev["step"])
+    check([e for e in drift if e["drift"] != "tail_regime"] == [e.to_event() for e in mon.events],
+          "obs (e): a fresh monitor on the logged rows gives other drift events")
+    check(all(e["step"] in replans for e in drift if e["drift"] == "tail_regime"),
+          "obs (e): a tail event outside a replan")
+    print(f"[obs] (e) launcher.main --fake-devices 2 --device {device} --obs-dir: reduced "
+          f"llama3.2-1b, faithful tnqsgd with EF, adaptive (replan every {OBS_E_REPLAN}), "
+          f"dropout {OBS_E_DROPOUT}, {OBS_E_STEPS} steps: rank 0's {len(events)} events; "
+          f"dropouts at steps {[e['step'] for e in dropouts]} as the schedule; {n_replan} replan "
+          f"spans; {len(drift)} drift events as a fresh monitor gives them "
+          f"({json.dumps([e['message'] for e in drift])}); {time.time() - t0:.1f} s")
 
 
 def main() -> int:

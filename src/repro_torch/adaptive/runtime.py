@@ -16,9 +16,6 @@ the same fresh tails) by ``switch_threshold``: hysteresis against
 noisy-tail oscillation.  Under an elastic schedule the budget is re-based
 on the expected live fraction of the next window, past
 ``live_hysteresis``.
-
-The ``obs`` and ``drift`` hooks of the JAX stepper wait for the port of
-``repro.obs`` (its span recorder and drift monitor): they must be None.
 """
 from __future__ import annotations
 
@@ -48,6 +45,16 @@ class AdaptiveStepper:
     :class:`~repro_torch.adaptive.controller.BitPlan`), ``None`` until the
     first replan — before that the uniform ``ts.compressor.bits`` plan runs.
     ``mesh`` is the data-parallel mesh every rank builds its stepper on.
+
+    Observability hooks (both optional, keyword-only): ``obs`` is a
+    :class:`repro_torch.obs.SpanRecorder` — the replan path (telemetry
+    merge + tail fit + allocation, the host-side stall candidate) runs
+    under an ``adaptive.replan`` span; ``drift`` is a
+    :class:`repro_torch.obs.DriftMonitor` fed the freshly estimated
+    per-bucket tails at every replan, so a Hill estimate railing out of the
+    power-law regime raises a structured warning the moment the controller
+    would have consumed it.  The hooks only observe: every rank gathers
+    the telemetry whether or not it holds them.
     """
 
     # class-level defaults so stepper shells built without __init__ (the
@@ -62,9 +69,6 @@ class AdaptiveStepper:
                  params_like: Any = None, *, obs: Any = None, drift: Any = None):
         if ts.adaptive is None:
             raise ValueError("AdaptiveStepper needs TrainStepConfig.adaptive set")
-        if obs is not None or drift is not None:
-            raise NotImplementedError("the obs and drift hooks wait for the port of repro.obs "
-                                      "(ROADMAP Queue 1, obs/): pass None")
         if params_like is None:
             from repro_torch.models import transformer
 
@@ -76,6 +80,7 @@ class AdaptiveStepper:
             ts = dataclasses.replace(
                 ts, compressor=dataclasses.replace(ts.compressor, approx_gmin=True))
         self.ts = ts
+        self.obs, self.drift = obs, drift
         self.cfg, self.mesh, self.opt = cfg, mesh, opt
         self.batch0 = batch0
         self.params_like = params_like
@@ -126,6 +131,12 @@ class AdaptiveStepper:
         """Merge peer telemetry, estimate tails/densities, re-solve bits, and
         adopt the new plan only past the hysteresis margin (the first replan
         away from the uniform bootstrap always adopts)."""
+        if self.obs is not None:
+            with self.obs.span("adaptive.replan"):
+                return self._replan(tstate, step)
+        return self._replan(tstate, step)
+
+    def _replan(self, tstate: Any, step: int = 0) -> BitPlan:
         acfg = self.ts.adaptive
         if getattr(self.ts, "elastic", None) is not None:
             # Re-base the budget on the expected live fraction over the
@@ -143,6 +154,8 @@ class AdaptiveStepper:
         tails = telemetry.estimate_tails(merged, gmin_quantile=acfg.gmin_quantile)
         dens = telemetry.estimate_densities(merged)
         self.tails = tails
+        if self.drift is not None:
+            self.drift.check_tails(tails, step=int(merged.steps))
         plan = allocate_bits(tails, self.sizes, self.budget, self.ts.compressor,
                              dens=dens, min_bits=acfg.min_bits, max_bits=acfg.max_bits,
                              alpha_iters=self.ts.compressor.alpha_iters)

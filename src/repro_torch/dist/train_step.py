@@ -30,6 +30,7 @@ import dataclasses
 import math
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.adaptive import telemetry as adaptive_telemetry
 from repro_torch.adaptive.controller import AdaptiveConfig
@@ -529,7 +530,8 @@ def make_train_step(cfg, mesh: compat.Mesh | None, opt, ts: TrainStepConfig, bat
             g_mean = g_leaves
         if ts.metrics_gnorm and gnorm is None:
             gnorm = global_norm(g_mean)
-        new_params, new_opt = opt.update(params, tree_unflatten(params, g_mean), opt_state, step)
+        with record_function("obs.optimizer"):
+            new_params, new_opt = opt.update(params, tree_unflatten(params, g_mean), opt_state, step)
         metrics = {"loss": _full(loss, n_dp)}
         if ts.metrics_gnorm:
             metrics["gnorm"] = _full(gnorm, n_dp)

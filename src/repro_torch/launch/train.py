@@ -17,13 +17,19 @@ launcher's specs (``N`` data; ``DxM`` data x model; ``PxDxM`` pod x data x
 model) over the ranks; the model axis must be 1 until the port's sharding
 rules land.  ``--device`` picks ``cuda`` (the default; a rank takes card
 ``LOCAL_RANK`` modulo the cards) or ``cpu``.  Rank 0 prints and
-checkpoints.  :func:`run` is one rank's loop for callers in the same
-process; it returns the history and the final state.
+checkpoints.  ``--obs-dir`` turns on every rank's per-bucket compression
+metrics (their gather is a collective) and gives rank 0 alone the event
+sink (``<obs-dir>/events.jsonl``), a span recorder synchronized on its
+device and a drift monitor, in the JAX launcher's order of events.
+:func:`run` is one rank's loop for callers in the same process; it
+returns the history and the final state.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
+import os
 import socket
 import sys
 
@@ -41,6 +47,7 @@ from repro_torch.dist import compat
 from repro_torch.dist.train_step import (SYNC_MODES, TrainStepConfig, init_ef_state,
                                          make_train_step)
 from repro_torch.models.transformer import init_lm
+from repro_torch.obs import SCHEMA_VERSION, DriftMonitor, JsonlSink, SpanRecorder, metrics_event
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train import _float32_and_deterministic, resolve_device
 
@@ -92,16 +99,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--obs-dir", default=None,
-                    help="observability JSONL (not yet in the port: stops with an error)")
+                    help="write observability JSONL here; turns on the per-bucket "
+                         "compression metrics (see repro_torch.obs)")
     ap.add_argument("--obs-every", type=int, default=1,
                     help="steps between compression-metric events")
     return ap
 
 
 def _check_args(ap: argparse.ArgumentParser, args) -> None:
-    if args.obs_dir:
-        ap.error("--obs-dir needs the port of repro.obs (obs/sink.py, trace.py, drift.py, "
-                 "report.py: ROADMAP Queue 1, obs/), which has not landed")
     if args.mesh:
         try:
             names, dims = mesh_axes(args.mesh)
@@ -111,6 +116,8 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
             ap.error(f"--mesh {args.mesh}: a model axis of {dims[-1]} waits for {SHARDING_ITEM}")
     if (args.chaos_trace or args.dropout_rate > 0.0) and args.bucket_mb <= 0:
         ap.error("--dropout-rate/--chaos-trace require the bucketed codec (--bucket-mb > 0)")
+    if args.obs_dir and args.bucket_mb <= 0:
+        ap.error("--obs-dir requires the bucketed codec (--bucket-mb > 0)")
 
 
 def mesh_axes(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
@@ -176,19 +183,26 @@ def _train(args) -> dict:
 
         ecfg = ElasticConfig(rate=args.dropout_rate)
         say(f"elastic: scheduled dropout rate {args.dropout_rate}")
+    obs_sink = obs_rec = drift_mon = None
+    if args.obs_dir and rank == 0:
+        obs_sink = JsonlSink(os.path.join(args.obs_dir, "events.jsonl"))
+        obs_rec = SpanRecorder(sink=obs_sink, device=device)
+        drift_mon = DriftMonitor(sink=obs_sink)
     ts = TrainStepConfig(sync=args.sync,
                          compressor=CompressorConfig(method=args.method, bits=args.bits,
                                                      rank=args.rank,
                                                      approx_gmin=args.adaptive),
                          bucket_mb=args.bucket_mb, error_feedback=args.ef, adaptive=acfg,
-                         elastic=ecfg, fp16_threshold=args.fp16_threshold)
+                         elastic=ecfg, fp16_threshold=args.fp16_threshold,
+                         metrics_compression=args.obs_dir is not None)
     batch0 = lm_batch(cfg, 0, args.batch, args.seq, device)
     opt_state = opt.init(params)
     stepper = step_fn = None
     if args.adaptive:
         from repro_torch.adaptive.runtime import AdaptiveStepper
 
-        stepper = AdaptiveStepper(cfg, mesh, opt, ts, batch0, params_like=params)
+        stepper = AdaptiveStepper(cfg, mesh, opt, ts, batch0, params_like=params,
+                                  obs=obs_rec, drift=drift_mon)
         say(f"adaptive: {len(stepper.sizes)} buckets, wire budget "
             f"{stepper.budget/2**20:.2f} MB/step, replan every {acfg.replan_every}")
     else:
@@ -202,42 +216,69 @@ def _train(args) -> dict:
     tstate = stepper.init_telemetry() if stepper is not None else None
 
     history = []
-    for i in range(start, start + args.steps):
-        b = lm_batch(cfg, i, args.batch, args.seq, device)
-        if stepper is not None:
-            prev_bits = stepper.bits
-            params, opt_state, ef_state, tstate, m = stepper.step(
-                params, opt_state, ef_state, tstate, b, i)
-            if stepper.bits != prev_bits:
-                from repro_torch.launch.report import adaptive_table
+    try:
+        for i in range(start, start + args.steps):
+            b = lm_batch(cfg, i, args.batch, args.seq, device)
+            span = (obs_rec.span("train.step", step=i) if obs_rec is not None
+                    else contextlib.nullcontext())
+            with span:
+                if stepper is not None:
+                    prev_bits = stepper.bits
+                    params, opt_state, ef_state, tstate, m = stepper.step(
+                        params, opt_state, ef_state, tstate, b, i)
+                    if stepper.bits != prev_bits:
+                        from repro_torch.launch.report import adaptive_table
 
-                plan, tails = stepper.plan, stepper.tails
-                say(f"step {i}: replanned bits -> {plan.bits} "
-                    f"({plan.spend_bytes}/{plan.budget_bytes} B/step)")
-                say(adaptive_table(stepper.sizes, plan.bits, plan.alphas,
-                                   gammas=None if tails is None else tails.gamma,
-                                   rhos=None if tails is None else tails.rho))
-        elif args.ef:
-            params, opt_state, ef_state, m = step_fn(params, opt_state, ef_state, b, i)
-        else:
-            params, opt_state, m = step_fn(params, opt_state, b, i)
-        rec = {"step": i, "loss": float(m["loss"][0])}
-        if "gnorm" in m:
-            rec["gnorm"] = float(m["gnorm"][0])
-        lvs = ""
-        if ecfg is not None and "live_count" in m:
-            n_peers, n_live = int(m["live"].numel()), int(round(float(m["live_count"][0])))
-            rec["live"] = n_live
-            lvs = f" live {n_live}/{n_peers}"
-        history.append(rec)
-        if args.log_every and i % args.log_every == 0:
-            gn = f" gnorm {rec['gnorm']:.3f}" if "gnorm" in rec else ""
-            say(f"step {i:5d} loss {rec['loss']:.4f}{gn}{lvs}", flush=True)
-        if args.ckpt_every and args.ckpt_dir and (i + 1) % args.ckpt_every == 0 and rank == 0:
-            save_checkpoint(args.ckpt_dir, i + 1, (params, opt_state))
-            say(f"checkpointed step {i+1}")
+                        plan, tails = stepper.plan, stepper.tails
+                        say(f"step {i}: replanned bits -> {plan.bits} "
+                            f"({plan.spend_bytes}/{plan.budget_bytes} B/step)")
+                        say(adaptive_table(stepper.sizes, plan.bits, plan.alphas,
+                                           gammas=None if tails is None else tails.gamma,
+                                           rhos=None if tails is None else tails.rho))
+                elif args.ef:
+                    params, opt_state, ef_state, m = step_fn(params, opt_state, ef_state, b, i)
+                else:
+                    params, opt_state, m = step_fn(params, opt_state, b, i)
+            if obs_sink is not None and "compression" in m and i % max(args.obs_every, 1) == 0:
+                event = metrics_event(i, m["compression"])
+                obs_sink.write(event)
+                drift_mon.check_ratio([row["realized_mse"] for row in event["buckets"]],
+                                      [row["predicted_mse"] for row in event["buckets"]], step=i)
+            rec = {"step": i, "loss": float(m["loss"][0])}
+            if "gnorm" in m:
+                rec["gnorm"] = float(m["gnorm"][0])
+            lvs = ""
+            if ecfg is not None and "live_count" in m:
+                lv = m["live"].cpu().reshape(-1)
+                n_peers, n_live = int(lv.numel()), int(round(float(m["live_count"][0])))
+                rec["live"] = n_live
+                lvs = f" live {n_live}/{n_peers}"
+                if n_live < n_peers and obs_sink is not None:
+                    obs_sink.write({"v": SCHEMA_VERSION, "kind": "dropout",
+                                    "step": i, "live": n_live, "n_peers": n_peers,
+                                    "dropped": [p for p in range(n_peers)
+                                                if float(lv[p]) == 0.0]})
+                if drift_mon is not None:
+                    drift_mon.check_participation(n_live / n_peers, step=i)
+            history.append(rec)
+            if args.log_every and i % args.log_every == 0:
+                gn = f" gnorm {rec['gnorm']:.3f}" if "gnorm" in rec else ""
+                say(f"step {i:5d} loss {rec['loss']:.4f}{gn}{lvs}", flush=True)
+            if args.ckpt_every and args.ckpt_dir and (i + 1) % args.ckpt_every == 0 and rank == 0:
+                save_checkpoint(args.ckpt_dir, i + 1, (params, opt_state))
+                say(f"checkpointed step {i+1}")
+    finally:
+        if obs_sink is not None:
+            obs_sink.close()
+    obs = None
+    if obs_sink is not None:
+        say(f"obs: {obs_sink.n_written} events -> {obs_sink.path} "
+            f"(render with `python -m repro_torch.obs report --dir {args.obs_dir}`)")
+        obs = {"path": str(obs_sink.path), "n_written": obs_sink.n_written,
+               "spans": obs_rec.summary(), "drift": [e.to_event() for e in drift_mon.events]}
     return {"history": history, "params": params, "opt_state": opt_state,
-            "ef_state": ef_state, "tstate": tstate, "plan": getattr(stepper, "plan", None)}
+            "ef_state": ef_state, "tstate": tstate, "plan": getattr(stepper, "plan", None),
+            "obs": obs}
 
 
 def _free_port() -> int:
@@ -251,9 +292,9 @@ def run(argv: list[str]) -> dict:
     one is initialized (or ``torchrun``'s environment), else over a 1-rank
     gloo group it starts and ends.  Returns ``{"history": [{"step",
     "loss", "gnorm", ...}], "params", "opt_state", "ef_state", "tstate",
-    "plan"}`` of this rank."""
-    import os
-
+    "plan", "obs"}`` of this rank; ``"obs"`` (rank 0 under ``--obs-dir``,
+    else None) is ``{"path", "n_written", "spans", "drift"}``: the event
+    log, its count, the span recorder's summary and the drift events."""
     ap = parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)

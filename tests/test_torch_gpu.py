@@ -1127,3 +1127,24 @@ def test_reduced_moe_and_hybrid_served_twice_bitwise(cuda, arch):
 def _tree_to(tree: dict, device) -> dict:
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def test_span_recorder_times_the_card(cuda):
+    """A span synchronized on the card lasts at least the CUDA-event time of
+    the work queued inside it (an unsynchronized host clock would see only
+    the enqueue)."""
+    from repro_torch.obs import SpanRecorder
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g2 = ops._to_2d(_heavy(gen, 1 << 24, cuda))[0]
+    stats.bucket_stats_2d(g2, 1 << 24)
+    rec = SpanRecorder(device=cuda)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with rec.span("stats", step=0):
+        start.record()
+        for _ in range(50):
+            stats.bucket_stats_2d(g2, 1 << 24)
+        end.record()
+    end.synchronize()
+    span = rec.summary()["stats"]
+    assert span["count"] == 1 and span["max_s"] >= start.elapsed_time(end) / 1e3 > 0

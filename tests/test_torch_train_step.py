@@ -20,11 +20,12 @@ Contract:
   replicated, ``compression`` (n_dp, n_buckets) leaves, ``live`` and
   ``live_count``);
 - ``AdaptiveStepper.replan`` on the same telemetry as JAX's stepper gives
-  JAX's bits (adopt, switch, keep under hysteresis); the step cache is
-  LRU-bounded at ``max_cached_steps``;
+  JAX's bits (adopt, switch, keep under hysteresis), an ``adaptive.replan``
+  span a replan and JAX's drift events (kind, bucket and step; γ within
+  fact F3's 1e-4); the step cache is LRU-bounded at ``max_cached_steps``;
 - the launcher on the CPU (1 rank, then ``--fake-devices 2``): its step-0
   loss is JAX's ``loss_fn`` on the same params and batch; a checkpoint
-  resumes.
+  resumes; ``--obs-dir`` writes a span and a metrics event a step.
 """
 import dataclasses
 import math
@@ -47,6 +48,8 @@ from repro.configs import reduced as jreduced  # noqa: E402
 from repro.core.compressors import CompressorConfig as JConfig  # noqa: E402
 from repro.dist import train_step as jts  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro.obs import DriftMonitor as JDriftMonitor  # noqa: E402
+from repro.obs import SpanRecorder as JSpanRecorder  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch import train  # noqa: E402
 from repro_torch.adaptive import runtime, telemetry  # noqa: E402
@@ -60,6 +63,7 @@ from repro_torch.elastic import ElasticConfig  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.smallnet import tree_leaves  # noqa: E402
+from repro_torch.obs import DriftMonitor, SpanRecorder, read_events  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 
 ARCH = "llama3.2-1b"
@@ -324,6 +328,9 @@ def test_replan_gives_jaxs_bits_and_hysteresis():
     sizes = (1 << 15, 3000)
     tstate, jstate = _telemetry(sizes, seed=4)
     port, jx = _shells(sizes, 0.02)
+    # the hooks: a margin of 0.3 puts bucket 0's tail (gamma 3.26) on a rail
+    port.obs, port.drift = SpanRecorder(), DriftMonitor(warn=False, gamma_margin=0.3)
+    jx.obs, jx.drift = JSpanRecorder(), JDriftMonitor(warn=False, gamma_margin=0.3)
     # the first replan always adopts; a starved current plan switches
     for current in (None, (2, 2)):
         if current is not None:   # starved
@@ -344,14 +351,19 @@ def test_replan_gives_jaxs_bits_and_hysteresis():
     port.bits, port.plan = perturbed, BitPlan(perturbed, (), 0, 0, err=got.err)
     jx.bits, jx.plan = perturbed, jruntime.BitPlan(perturbed, (), 0, 0, err=want.err)
     assert port.replan(tstate).bits == jx.replan(jstate).bits == perturbed
+    # every replan ran under a span and fed the fresh tails to the monitor
+    assert port.obs.summary()["adaptive.replan"]["count"] == 3
+    assert jx.obs.summary()["adaptive.replan"]["count"] == 3
+    assert [(e.kind, e.bucket, e.step) for e in port.drift.events] == \
+        [(e.kind, e.bucket, e.step) for e in jx.drift.events] == [("tail_regime", 0, 3)] * 3
+    assert all(abs(a.value - b.value) <= 1e-4 * b.value
+               for a, b in zip(port.drift.events, jx.drift.events, strict=True))
     # the step cache is LRU-bounded at max_cached_steps
     port._build = lambda bits: ("step", bits)
     port._cache = __import__("collections").OrderedDict()
     for bits in [(2, 2, 2), (3, 3, 3), (4, 4, 4), (3, 3, 3)]:
         assert port._step_for(bits) == ("step", bits)
     assert list(port._cache) == [(4, 4, 4), (3, 3, 3)]
-    with pytest.raises(NotImplementedError, match="obs"):
-        runtime.AdaptiveStepper(None, None, None, port.ts, None, obs=object())
     with pytest.raises(ValueError, match="adaptive"):
         runtime.AdaptiveStepper(None, None, None, train_step.TrainStepConfig(), None)
 
@@ -372,7 +384,9 @@ def test_launcher_on_cpu(tmp_path, capfd):
     params = transformer.init_lm(prng.key(0), cfg, device="cpu")
     batch0 = lm_batch(cfg, 0, B, S, "cpu")
     ck = str(tmp_path / "ckpt")
-    out = launcher.run(argv + ["--steps", "2", "--ef", "--ckpt-dir", ck, "--ckpt-every", "1"])
+    obs_dir = tmp_path / "obs"
+    out = launcher.run(argv + ["--steps", "2", "--ef", "--ckpt-dir", ck, "--ckpt-every", "1",
+                               "--obs-dir", str(obs_dir)])
     want = _jax_loss(ARCH, params, batch0)
     assert abs(out["history"][0]["loss"] - want) <= RTOL * want
     assert len(out["ef_state"]) == len(train_step.local_bucket_sizes(
@@ -383,6 +397,12 @@ def test_launcher_on_cpu(tmp_path, capfd):
     assert "arch=llama3.2-1b mesh={'data': 1} sync=two_phase method=tnqsgd bits=3" in text
     assert "checkpointed step 2" in text and "resumed from step 2" in text
     assert re.search(r"step     1 loss \d+\.\d{4} gnorm \d+\.\d{3}", text)
+    events = read_events(obs_dir)
+    assert f"obs: {len(events)} events -> {obs_dir / 'events.jsonl'}" in text
+    assert [(e["kind"], e["step"]) for e in events if e["kind"] != "drift"] == [
+        ("span", 0), ("metrics", 0), ("span", 1), ("metrics", 1)]
+    assert out["obs"]["n_written"] == len(events)
+    assert out["obs"]["spans"]["train.step"]["count"] == 2
     # two spawned gloo ranks, one client each: the mean of the halves' losses
     assert launcher.main(argv + ["--steps", "1", "--fake-devices", "2"]) == 0
     text = capfd.readouterr().out
@@ -392,7 +412,8 @@ def test_launcher_on_cpu(tmp_path, capfd):
               for i in range(B)]
     want = sum(_jax_loss(ARCH, params, h) for h in halves) / B
     assert abs(got - want) <= 6e-5, (got, want)
-    for bad, what in ((["--mesh", "1x2"], "model axis"), (["--obs-dir", str(tmp_path)], "obs")):
+    for bad, what in ((["--mesh", "1x2"], "model axis"),
+                      (["--obs-dir", str(tmp_path), "--bucket-mb", "0"], "bucketed codec")):
         with pytest.raises(SystemExit):
             launcher.main(argv + bad)
         assert what in capfd.readouterr().err
