@@ -5,8 +5,11 @@ Run from the repository root with ``python3 chip_smoke.py``; it needs one
 CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
 
 1. card: print ``nvidia-smi``'s name and power limit, require CUDA;
-2. build: compile every kernel of the main path from ``csrc/`` and print
-   the ``-Xptxas -v`` register and shared-memory report;
+2. build: compile every kernel of the main path from ``csrc/``, print the
+   ``-Xptxas -v`` register and shared-memory report and hold it to the
+   kernels pass (``repro_torch.analysis.kernel_resources``): K1-K17 all
+   built, no kernel spills, none past 227 KB of shared memory or 255
+   registers;
 3. kernel parity: each of the seventeen kernels against its plain PyTorch
    version on the card on identical inputs.  K1-K10 at smallnet's bucket
    (206,922 elements), a full 4 MB bucket (1,048,576) and a ragged size, 8
@@ -167,7 +170,19 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    kernels at a 4 MB bucket's chunk shape, K1, K2, K4 and K8 at the
    largest LM gradient bucket (268,435,456 elements, one peer; each first
    held to its plain version there), one synced step's wall time per sync
-   mode and method, and one per-tensor round's compression phase by phase.
+   mode and method, and one per-tensor round's compression phase by phase;
+6. (run after 4d, before 5) the dry run and the analysis passes: (a)
+   ``launch.dryrun.run_one`` of phase 4d (a)'s step (llama3.2-1b
+   published, 4 x 2,048, faithful tnqsgd 3 bits with EF, momentum SGD) and
+   of 4c's 4 x 2,048 prefill on meta tensors, each taking no card memory
+   and launching no port kernel; their predicted compute, memory and
+   collective terms, model FLOPs and bytes a device beside 4d's measured
+   step (forward+backward+optimizer, kernels, peak) and 4c's prefill, the
+   measured step's MFU, and both records through ``launch.report``; (b)
+   ``python -m repro_torch.analysis --quick``: the sync pass on 4 gloo
+   ranks on ``cuda:0`` (its collectives at the budgets, K1, K2, K4, K6,
+   K8, K10 and K11 launched through the real sync), the AST pass and the
+   kernels pass, clean.
 
 The second-to-last line is the per-kernel JSON record, the last line the
 device record.
@@ -175,11 +190,11 @@ device record.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -414,9 +429,10 @@ def _leaves(tree) -> list:
     return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) else [tree]
 
 
-def serving_phase(card: str) -> None:
+def serving_phase(card: str) -> dict:
     """Phase 4c: the LM zoo's serving path through ``make_serve_fns`` at
-    full config on the card (the module docstring lists its checks)."""
+    full config on the card (the module docstring lists its checks).
+    Returns llama3.2-1b's 4 x 2,048 prefill ms (two runs)."""
     import torch
 
     from repro_torch import kernels
@@ -681,6 +697,7 @@ def serving_phase(card: str) -> None:
     for label, rec in family_times.items():
         print("[time] " + json.dumps({"serve": label, "batch": 4, **rec, "card": card}))
     print(f"[serve] no port kernel launched; phase wall time {time.time() - t_phase:.1f} s")
+    return {"prefill_ms_4x2048": [p2ka, p2kb], "peak_bytes": peak}
 
 
 TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "2048", "--sync", "faithful",
@@ -776,10 +793,11 @@ def _lm_rank(rank: int, world: int, init: str, workdir: str, src: str, device: s
         dist.destroy_process_group()
 
 
-def training_phase(card: str, device: str = "cuda") -> dict:
+def training_phase(card: str, device: str = "cuda") -> tuple[dict, list]:
     """Phase 4d: the LM zoo's train step on the card (the module docstring
     lists its checks).  Returns the port kernels' launches of (a)'s first
-    full-width run and of (b)'s ranks."""
+    full-width run and of (b)'s ranks, and (a)'s first run's steps (each
+    step's ms, its split and its peak bytes)."""
     import tempfile
 
     import torch
@@ -1085,7 +1103,8 @@ def training_phase(card: str, device: str = "cuda") -> dict:
     # a dropout schedule, 5 steps
     launcher_obs_phase(device)
     print(f"[train] phase wall time {time.time() - t_phase:.1f} s")
-    return {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in set(counts_a) | set(counts_b)}
+    return ({k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in set(counts_a) | set(counts_b)},
+            [{k: s[k] for k in ("step_ms", "split_ms", "peak_bytes")} for s in steps_a])
 
 
 def obs_checks(obs_dir: str, steps_a: list, steps_b: list, n_buckets: int, sizes: list,
@@ -1235,6 +1254,163 @@ def launcher_obs_phase(device: str) -> None:
           f"({json.dumps([e['message'] for e in drift])}); {time.time() - t0:.1f} s")
 
 
+DRYRUN_OPTIMIZER = "momentum_sgd"  # phase 4d (a)'s: the launcher's default
+ANALYSIS_TIMEOUT_S = 600
+# the kernels the sync pass's quick matrix must launch through the real sync
+ANALYSIS_KERNELS = ("encode_fused.ef_correct_stats_2d",
+                    "encode_fused.codebook_encode_pack_resid_2d",
+                    "decode.codebook_decode_reduce_3d", "encode_fused.codebook_encode_pack_2d",
+                    "decode.codebook_decode_rows_3d", "stats.bucket_stats_2d",
+                    "orthogonalize.orthogonalize_2d")
+
+
+def dryrun_phase(card: str, train_steps: list, served: dict) -> None:
+    """Phase 6 (a): the dry runs of phase 4d (a)'s step and 4c's llama
+    prefill on meta tensors (``launch.dryrun.run_one``) in this process,
+    each taking no card memory and launching no port kernel; their
+    predicted terms beside what 4c and 4d measured, the measured step's
+    MFU, and the records through ``launch.report``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun, report, roofline
+
+    t_phase = time.time()
+    runs = {
+        "train": (dryrun.shape_for("train_4k", 4, 2048),
+                  dict(sync="faithful", method="tnqsgd", bits=3, ef=True,
+                       optimizer=DRYRUN_OPTIMIZER)),
+        "prefill": (dryrun.shape_for("prefill_32k", 4, 2048), {}),
+    }
+    recs = {}
+    for label, (shape, kw) in runs.items():
+        # free what earlier phases left to the collector first, so that a
+        # collection during the dry run cannot move the count
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0, counts0 = torch.cuda.memory_allocated(), kernels.launch_counts()
+        t0 = time.time()
+        rec = dryrun.run_one("llama3.2-1b", shape, **kw)
+        torch.cuda.synchronize()
+        check(torch.cuda.memory_allocated() == mem0 == torch.cuda.max_memory_allocated(),
+              f"dry run {label}: card memory {mem0} -> {torch.cuda.memory_allocated()} (peak "
+              f"{torch.cuda.max_memory_allocated()})")
+        check(kernels.launch_counts() == counts0, f"dry run {label} launched a port kernel")
+        r = rec["roofline"]
+        check(r["flops"] > 0 and r["hbm_bytes"] > 0 and rec["fits_one_card"],
+              f"dry run {label}: {r}")
+        recs[label] = rec
+        print(f"[dryrun] {dryrun.summary_line(rec)}; {time.time() - t0:.1f} s, no card memory, "
+              "no kernel")
+
+    # predicted against measured: 4d (a)'s steps after the first, 4c's prefill
+    later = train_steps[1:]
+    step_ms = statistics.median(s["step_ms"] for s in later)
+    fb_ms = statistics.median(s["split_ms"]["forward_backward"] + s["split_ms"]["optimizer"]
+                              for s in later)
+    kern_ms = statistics.median(s["split_ms"]["kernels"] for s in later)
+    peak = max(s["peak_bytes"] for s in train_steps)
+    tr, parts = recs["train"]["roofline"], recs["train"]["parts"]
+    model_ms = max(parts["model"]["compute_s"], parts["model"]["memory_s"]) * 1e3
+    pre_ms = statistics.median(served["prefill_ms_4x2048"])
+    pr = recs["prefill"]["roofline"]
+    mfu = roofline.mfu(tr["model_flops"], step_ms / 1e3)
+    out = {
+        "train": {
+            "predicted": {"compute_ms": tr["compute_s"] * 1e3, "memory_ms": tr["memory_s"] * 1e3,
+                          "collective_ms": tr["collective_s"] * 1e3,
+                          "model_compute_ms": parts["model"]["compute_s"] * 1e3,
+                          "model_memory_ms": parts["model"]["memory_s"] * 1e3,
+                          "sync_memory_ms": parts["sync"]["memory_s"] * 1e3,
+                          "model_flops": tr["model_flops"], "flops": tr["flops"],
+                          "hbm_bytes": tr["hbm_bytes"],
+                          "peak_bytes": recs["train"]["memory"]["total_per_device_bytes"]},
+            "measured": {"step_ms": step_ms, "forward_backward_optimizer_ms": fb_ms,
+                         "kernels_ms": kern_ms, "peak_bytes": peak},
+            "ratios": {"compute": parts["model"]["compute_s"] * 1e3 / fb_ms,
+                       "memory": parts["model"]["memory_s"] * 1e3 / fb_ms,
+                       "model_bound": model_ms / fb_ms,
+                       "step_bound": max(tr["compute_s"], tr["memory_s"]) * 1e3 / step_ms,
+                       "peak": recs["train"]["memory"]["total_per_device_bytes"] / peak},
+            "mfu": mfu},
+        "prefill": {
+            "predicted": {"compute_ms": pr["compute_s"] * 1e3, "memory_ms": pr["memory_s"] * 1e3,
+                          "model_flops": pr["model_flops"],
+                          "peak_bytes": recs["prefill"]["memory"]["total_per_device_bytes"]},
+            "measured": {"prefill_ms": pre_ms, "prefill_ms_runs": served["prefill_ms_4x2048"]},
+            "ratios": {"compute": pr["compute_s"] * 1e3 / pre_ms,
+                       "memory": pr["memory_s"] * 1e3 / pre_ms,
+                       "bound": max(pr["compute_s"], pr["memory_s"]) * 1e3 / pre_ms}},
+    }
+    print("[time] " + json.dumps({"dryrun_vs_measured": out, "card": card}))
+    print(f"[dryrun] llama3.2-1b train 4 x 2048 (one rank, faithful tnqsgd 3 bits with EF): "
+          f"predicted compute {tr['compute_s'] * 1e3:.1f} ms, memory {tr['memory_s'] * 1e3:.1f} "
+          f"ms, collective {tr['collective_s'] * 1e3:.1f} ms, {tr['model_flops']:.4g} model "
+          f"FLOPs, {recs['train']['memory']['total_per_device_bytes'] / 1e9:.2f} GB a device; "
+          f"measured step {step_ms:.1f} ms (forward+backward+optimizer {fb_ms:.1f}, kernels "
+          f"{kern_ms:.1f}), peak {peak / 1e9:.2f} GB; MFU {mfu:.4f} on {card}")
+    print(f"[dryrun] llama3.2-1b prefill 4 x 2048: predicted compute {pr['compute_s'] * 1e3:.1f} "
+          f"ms, memory {pr['memory_s'] * 1e3:.1f} ms, {pr['model_flops']:.4g} model FLOPs, "
+          f"{recs['prefill']['memory']['total_per_device_bytes'] / 1e9:.2f} GB a device; "
+          f"measured {pre_ms:.2f} ms on {card}")
+    with tempfile.TemporaryDirectory() as d:
+        for rec in recs.values():
+            pathlib.Path(d, f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json").write_text(
+                json.dumps(rec))
+        loaded = report.load(pathlib.Path(d))
+        check(len(loaded) == 2, f"report.load read {len(loaded)} of the 2 records")
+        print(report.roofline_table(loaded, "1"))
+        print(report.dryrun_table(loaded))
+    print(f"[dryrun] phase wall time {time.time() - t_phase:.1f} s")
+
+
+def analysis_phase(card: str) -> dict:
+    """Phase 6 (b): ``python -m repro_torch.analysis --quick`` (its sync
+    pass on 4 gloo ranks on ``cuda:0``, the AST pass, the kernels pass
+    over this build's reports): clean, every budget met, the sync's
+    kernels launched.  Returns the launches its ranks counted."""
+    import tempfile
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        out = pathlib.Path(d, "ANALYSIS.json")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--quick", "--json",
+                               str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=ANALYSIS_TIMEOUT_S)
+        print("\n".join(f"[analysis] {ln}" for ln in proc.stdout.splitlines()))
+        check(proc.returncode == 0, f"repro_torch.analysis --quick exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        rep = json.loads(out.read_text())
+    check(rep["clean"] and rep["findings"] == [], f"analysis findings {rep['findings']}")
+    per = rep["passes"]["sync"]["per_trace"]
+    budgets = {"faithful": 1, "two_phase": 2, "hierarchical": 3}
+    for mode, budget in budgets.items():
+        row = per[f"sync:{mode}/tqsgd"]
+        check(sum(row["collectives"].values()) == row["budget"] == budget,
+              f"analysis {mode}: collectives {row['collectives']}, budget {budget}")
+    dsgd = per["sync:dsgd/tqsgd"]
+    check(dsgd["collectives"] == {"psum": dsgd["n_buckets"]} == {"psum": dsgd["budget"]},
+          f"analysis dsgd: {dsgd}")
+    launched: dict[str, int] = {}
+    for row in per.values():
+        for k, v in row.get("launches", {}).items():
+            launched[k] = launched.get(k, 0) + v
+    missing = [k for k in ANALYSIS_KERNELS if not launched.get(k)]
+    check(not missing, f"the sync pass never launched {missing}: {launched}")
+    kern = rep["passes"]["kernels"]
+    check(all(row["entries"] for row in kern["per_kernel"].values()),
+          f"kernels pass: {kern['per_kernel']}")
+    print(f"[analysis] clean: {rep['passes']['sync']['traces']} sync runs on 4 gloo ranks on "
+          f"cuda:0 (collectives at their budgets), {rep['passes']['ast']['files']} files, "
+          f"{kern['kernels']} kernel entries; launches {json.dumps(launched)}; phase wall "
+          f"time {time.time() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> int:
     t_script = time.time()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1275,10 +1451,17 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas info" in line:
                 print(f"[build] {name}.cu: {line.strip()}")
-    # the encode body keeps its operands in registers: no kernel of it spills
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", reports["encode_fused"])]
-    check(spills and not any(spills), f"encode_fused.cu spills: {spills}")
-    print(f"[build] encode_fused.cu: {len(spills)} kernels, no spill stores")
+    # the kernels pass over these reports: no kernel of any source spills,
+    # none passes 227 KB of shared memory or 255 registers, K1-K17 all built
+    from repro_torch.analysis import kernel_resources
+
+    res_findings, res_table = kernel_resources.run_pass(reports)
+    check(not res_findings, f"kernels pass: {[str(f) for f in res_findings]}")
+    per_k = kernel_resources.per_kernel(res_table)
+    print(f"[build] kernels pass: {len(res_table)} entry functions, K1-K17 all built, no spill "
+          f"stores, at most {max(r.registers for r in res_table)} registers and "
+          f"{max(r.smem_bytes for r in res_table)} B of static shared memory")
+    print("[time] " + json.dumps({"kernel_resources": per_k, "card": card}))
 
     # -- 3. kernel parity -------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -2556,10 +2739,16 @@ def main() -> int:
     print(f"[mesh] phase wall time {time.time() - t_mesh:.1f} s")
 
     # -- 4c. serving ------------------------------------------------------
-    serving_phase(card)
+    served = serving_phase(card)
 
     # -- 4d. training -----------------------------------------------------
-    for k, v in training_phase(card).items():
+    trained, train_steps = training_phase(card)
+    for k, v in trained.items():
+        launches[k] += v
+
+    # -- 6. the dry run beside 4c and 4d, and the analysis passes ----------
+    dryrun_phase(card, train_steps, served)
+    for k, v in analysis_phase(card).items():
         launches[k] += v
 
     # -- 5. times ---------------------------------------------------------

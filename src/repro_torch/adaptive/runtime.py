@@ -73,6 +73,7 @@ class AdaptiveStepper:
             from repro_torch.models import transformer
 
             # shapes only: the meta device allocates nothing
+            # repro: allow REPRO204 (a meta draw has no values: the key shapes nothing)
             params_like = transformer.init_lm(prng.key(0), cfg, device="meta")
         # The plan/telemetry hot loop never full-sorts: force the histogram
         # quantile for g_min unless the caller already chose.

@@ -6,7 +6,7 @@ in the module docstring), equal field for field to the JAX package's.
 """
 from __future__ import annotations
 
-from .base import ArchConfig, MoESpec, SSMSpec, reduced
+from .base import INPUT_SHAPES, ArchConfig, InputShape, MoESpec, SSMSpec, reduced
 
 from . import (
     gemma_7b,
@@ -48,12 +48,32 @@ def list_archs() -> list[str]:
     return list(ARCHS)
 
 
+def get_shape(name: str) -> InputShape:
+    if name not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]
+
+
+def variant_for_shape(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
+    """Arch variant actually run for a given input shape.
+
+    ``long_500k`` on full-attention families switches to the sliding-window
+    variant (window 4096, rolling KV cache); SSM/hybrid run natively."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid") and cfg.sliding_window is None:
+        return cfg.replace(sliding_window=4096)
+    return cfg
+
+
 __all__ = [
     "ARCHS",
     "ArchConfig",
+    "INPUT_SHAPES",
+    "InputShape",
     "MoESpec",
     "SSMSpec",
     "get_config",
+    "get_shape",
     "list_archs",
     "reduced",
+    "variant_for_shape",
 ]

@@ -6,9 +6,9 @@ Each architecture file in this package instantiates the exact published
 config, and ``reduced()`` gives a smoke-test variant (2 layers,
 d_model <= 512, <= 4 experts) of the same family.
 
-The port of ``repro.configs.base``, field for field.  The input shapes
-(``InputShape``, ``INPUT_SHAPES``) are not ported: only the launcher
-reads them.
+The port of ``repro.configs.base``, field for field, with the input
+shapes (``InputShape``, ``INPUT_SHAPES``) the dry run reads
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -97,6 +97,26 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256, vocab: int = 512) -> ArchConfig:

@@ -54,7 +54,9 @@ def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     lo, hi = int(np.clip(np.floor(rank), 0, n - 1)), int(np.clip(np.ceil(rank), 0, n - 1))
     w_hi = np.float32(rank - np.floor(rank))
     w_lo = np.float32(1.0) - w_hi
+    # repro: allow REPRO103 (XLA's fused multiply-add, emulated: one rounding of an exact sum)
     low = (s[lo] * float(w_lo)).to(torch.float64)
+    # repro: allow REPRO103 (XLA's fused multiply-add, emulated: one rounding of an exact sum)
     return (s[hi].to(torch.float64) * float(w_hi) + low).to(torch.float32)
 
 

@@ -64,6 +64,7 @@ def _q_init(cols: int, r: int, device: torch.device) -> torch.Tensor:
     """The cold-start Q₀, drawn once per shape and device: a constant, as
     in the JAX trace; never written in place (``torch.where`` and the
     products make new tensors)."""
+    # repro: allow REPRO102 (the shared Q0 init is the PowerSGD contract, as in JAX)
     return prng.normal(prng.key(_Q0_SEED), (cols, r), device=device)
 
 

@@ -116,8 +116,16 @@ def _size(shape) -> int:
     return n
 
 
+def _on_meta(device) -> bool:
+    """A draw on the ``meta`` device has a shape and no values: it skips the
+    hash (``launch.specs`` builds whole models there)."""
+    return device is not None and torch.device(device).type == "meta"
+
+
 def random_bits(k: torch.Tensor, shape, device=None) -> torch.Tensor:
     """32 random bits per element, int64 in [0, 2**32)."""
+    if _on_meta(device):
+        return torch.empty(tuple(shape), dtype=torch.int64, device="meta")
     return _hash_halves(*_words(k), _size(shape), device).reshape(tuple(shape))
 
 
@@ -168,6 +176,8 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 def normal(k: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.normal``: ``sqrt(2)·erf_inv(u)`` on the open (-1, 1),
     with XLA's erf_inv (:func:`erfinv`): a few ulp from JAX, not bitwise."""
+    if _on_meta(device):
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
     u = uniform(k, shape, device, _NORMAL_LO, 1.0)
     return _SQRT2 * erfinv(u)
 

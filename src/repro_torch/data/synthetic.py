@@ -44,6 +44,7 @@ def make_mrope_positions(batch: int, seq: int, n_patches: int, grid: int = 16,
 def lm_batch(cfg, seed: int, batch: int, seq: int, device="cuda") -> Batch:
     """One batch of step ``seed`` for any zoo config."""
     # the dataset is one fixed stream; seed selects the batch
+    # repro: allow REPRO204 (the dataset IS the fixed stream; seed selects the batch)
     k_tok, k_extra = prng.split(prng.fold_in(prng.key(0), seed))
     tokens = _zipf_tokens(k_tok, (batch, seq), cfg.vocab, device)
     labels = torch.roll(tokens, -1, dims=1)
@@ -76,6 +77,7 @@ def shapes_batch(templates: torch.Tensor, seed: int, batch: int, noise: float = 
     nc = templates.shape[0]
     device = templates.device
     # the dataset is one fixed stream; seed selects the batch
+    # repro: allow REPRO204 (the dataset IS the fixed stream; seed selects the batch)
     k_lab, k_noise, k_out = prng.split(prng.fold_in(prng.key(1), seed), 3)
     labels = prng.randint(k_lab, (batch,), 0, nc, device)
     imgs = templates[labels]

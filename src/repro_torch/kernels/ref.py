@@ -52,16 +52,23 @@ def bucket_stats(g2: torch.Tensor, n: int) -> torch.Tensor:
     # invalid elements go to a spare bin NUM_BINS that is dropped
     b = torch.where(valid, b, S.NUM_BINS)
     slot = torch.arange(blocks, device=flat.device).repeat_interleave(m) * (S.NUM_BINS + 1) + b
+    # The float64 below is the exact per-tile sum, rounded to float32 once
+    # (the docstring's reason); this plain version runs on the CPU, whose
+    # index_add adds in index order.  Neither reaches the card's sync.
+    # repro: allow REPRO103 (exact per-tile sums, rounded to float32 once)
     hist = torch.zeros(blocks * (S.NUM_BINS + 1), dtype=torch.float64, device=flat.device)
+    # repro: allow REPRO103, REPRO104 (exact per-tile sums; the CPU adds in index order)
     counts = hist.index_add(0, slot, vmask.double()).reshape(blocks, -1)[:, :S.NUM_BINS]
+    # repro: allow REPRO103, REPRO104 (exact per-tile sums; the CPU adds in index order)
     logsum = hist.index_add(0, slot, (lnab * vmask).double()).reshape(blocks, -1)[:, :S.NUM_BINS]
+    # repro: allow REPRO103 (exact per-tile sums, rounded to float32 once)
     gv = (x * vmask).reshape(blocks, m).double()
     part = torch.zeros((blocks, S.STATS_ROWS, S.NUM_BINS), dtype=torch.float32, device=flat.device)
-    part[:, 0] = counts.float()
-    part[:, 1] = logsum.float()
+    # repro: allow REPRO103 (exact per-tile sums, rounded to float32 once)
+    part[:, 0], part[:, 1] = counts.float(), logsum.float()
     part[:, 2] = gabs.reshape(blocks, m).amax(1, keepdim=True)
-    part[:, 3] = gv.sum(1, keepdim=True).float()
-    part[:, 4] = (gv * gv).sum(1, keepdim=True).float()
+    # repro: allow REPRO103 (exact per-tile sums, rounded to float32 once)
+    part[:, 3], part[:, 4] = gv.sum(1, keepdim=True).float(), (gv * gv).sum(1, keepdim=True).float()
     acc = torch.zeros((S.STATS_ROWS, S.NUM_BINS), dtype=torch.float32, device=flat.device)
     for i in range(blocks):
         nxt = acc + part[i]

@@ -13,9 +13,9 @@ Every rank of the default process group is one data-parallel client
 
 The groups are gloo: the mesh's collectives run on CPU and CUDA tensors
 alike, and several ranks may share one card.  ``--mesh`` reads the JAX
-launcher's specs (``N`` data; ``DxM`` data x model; ``PxDxM`` pod x data x
-model) over the ranks; the model axis must be 1 until the port's sharding
-rules land.  ``--device`` picks ``cuda`` (the default; a rank takes card
+launcher's specs over the ranks through ``launch.mesh.mesh_axes`` (``N``
+data; ``DxM`` data x model; ``PxDxM`` pod x data x model); the model axis
+must be 1 until the port's sharding rules land.  ``--device`` picks ``cuda`` (the default; a rank takes card
 ``LOCAL_RANK`` modulo the cards) or ``cpu``.  Rank 0 prints and
 checkpoints.  ``--obs-dir`` turns on every rank's per-bucket compression
 metrics (their gather is a collective) and gives rank 0 alone the event
@@ -46,13 +46,11 @@ from repro_torch.data.synthetic import lm_batch
 from repro_torch.dist import compat
 from repro_torch.dist.train_step import (SYNC_MODES, TrainStepConfig, init_ef_state,
                                          make_train_step)
+from repro_torch.launch.mesh import data_parallel_axes, mesh_axes
 from repro_torch.models.transformer import init_lm
 from repro_torch.obs import SCHEMA_VERSION, DriftMonitor, JsonlSink, SpanRecorder, metrics_event
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train import _float32_and_deterministic, resolve_device
-
-SHARDING_ITEM = "ROADMAP Queue 1, item 4.2 (dist/sharding.py: tensor and expert parallelism)"
-
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
@@ -109,25 +107,13 @@ def parser() -> argparse.ArgumentParser:
 def _check_args(ap: argparse.ArgumentParser, args) -> None:
     if args.mesh:
         try:
-            names, dims = mesh_axes(args.mesh)
+            data_parallel_axes(args.mesh)
         except ValueError as e:
             ap.error(str(e))
-        if "model" in names and dims[-1] != 1:
-            ap.error(f"--mesh {args.mesh}: a model axis of {dims[-1]} waits for {SHARDING_ITEM}")
     if (args.chaos_trace or args.dropout_rate > 0.0) and args.bucket_mb <= 0:
         ap.error("--dropout-rate/--chaos-trace require the bucketed codec (--bucket-mb > 0)")
     if args.obs_dir and args.bucket_mb <= 0:
         ap.error("--obs-dir requires the bucketed codec (--bucket-mb > 0)")
-
-
-def mesh_axes(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
-    """``--mesh`` as the JAX launcher reads it: '4' -> ('data',), '4x2' ->
-    ('data', 'model'), '2x4x2' -> ('pod', 'data', 'model')."""
-    dims = tuple(int(x) for x in spec.lower().split("x"))
-    names = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(dims))
-    if names is None:
-        raise ValueError(f"bad mesh spec {spec!r}")
-    return names, dims
 
 
 def build_mesh(spec: str) -> tuple[compat.Mesh, dict]:
@@ -136,12 +122,12 @@ def build_mesh(spec: str) -> tuple[compat.Mesh, dict]:
     over the default process group, and the spec's axes as a dict (for the
     log line)."""
     names, dims = mesh_axes(spec)
-    dp = tuple(d for n, d in zip(names, dims) if n != "model")
+    dp_names, dp = data_parallel_axes(spec)
     world = dist.get_world_size()
     if math.prod(dp) != world:
         raise ValueError(f"mesh {spec!r} has {math.prod(dp)} data-parallel ranks, the process "
                          f"group {world}")
-    return compat.Mesh(dp, tuple(n for n in names if n != "model")), dict(zip(names, dims))
+    return compat.Mesh(dp, dp_names), dict(zip(names, dims))
 
 
 def _train(args) -> dict:
@@ -162,6 +148,7 @@ def _train(args) -> dict:
         torch.cuda.set_device(device)
     say(f"arch={cfg.name} mesh={shown} sync={args.sync} method={args.method} bits={args.bits}")
 
+    # repro: allow REPRO204 (CLI entry point: the reproducible demo seed, JAX's)
     params = init_lm(prng.key(0), cfg, device=device)
     opt = (get_optimizer(args.optimizer, lr=args.lr) if args.optimizer == "momentum_sgd"
            else get_optimizer(args.optimizer))

@@ -66,8 +66,13 @@ def _route(cfg, p: dict, xf: torch.Tensor):
 
 
 def _aux_loss(e: int, idx: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
-    """Switch-style load balance: E * <fraction routed first> . <router prob>."""
-    me = torch.bincount(idx[:, 0], minlength=e).float() / idx.shape[0]
+    """Switch-style load balance: E * <fraction routed first> . <router prob>.
+    The counts are an integer scatter-add (exact in any order), which the
+    meta device runs too (``launch.dryrun``)."""
+    first = idx[:, 0]
+    counts = torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, first, torch.ones_like(first))
+    me = counts.float() / idx.shape[0]
     return e * torch.sum(me * probs.mean(0))
 
 

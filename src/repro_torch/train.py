@@ -142,7 +142,9 @@ def train_synced(sync: str = "faithful", method: str = "tnqsgd", bits: int = 3,
     ts = TrainStepConfig(sync=sync, error_feedback=error_feedback, bucket_mb=bucket_mb,
                          elastic=elastic, compressor=CompressorConfig(method=method, bits=bits),
                          metrics_gnorm=False)
+    # repro: allow REPRO204 (the paper's setting: the golden runs' fixed streams)
     templates = make_templates(prng.key(42), device=device)
+    # repro: allow REPRO204 (the paper's setting: the golden runs' fixed streams)
     params = init_smallnet(prng.key(0), device=device)
     opt = momentum_sgd(lr=0.01, momentum=0.9, weight_decay=5e-4)
     state = opt.init(params)
@@ -254,6 +256,7 @@ def train_clients(method: str, bits: int, *, rounds: int = 80, n_clients: int = 
     """
     device = resolve_device(device)
     _float32_and_deterministic()
+    # repro: allow REPRO204 (the JAX run's fixed dataset stream, benchmarks/common.py)
     templates = make_templates(prng.key(42), device=device)
     params = init_smallnet(prng.key(seed), device=device)
     opt = momentum_sgd(lr=lr, momentum=momentum, weight_decay=weight_decay)
@@ -273,6 +276,7 @@ def train_clients(method: str, bits: int, *, rounds: int = 80, n_clients: int = 
         for c in range(n_clients):
             g = [leaf[c] for leaf in stacked]
             if method != "dsgd":
+                # repro: allow REPRO204 (the JAX run's per-round key stream)
                 key = prng.fold_in(prng.key(7), i * n_clients + c)
                 if error_feedback and bits_plan is None:
                     g, errs[c] = compress_with_feedback(ccfg, g, errs[c], key)

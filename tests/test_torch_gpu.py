@@ -1148,3 +1148,27 @@ def test_span_recorder_times_the_card(cuda):
     end.synchronize()
     span = rec.summary()["stats"]
     assert span["count"] == 1 and span["max_s"] >= start.elapsed_time(end) / 1e3 > 0
+
+
+def test_dry_run_allocates_nothing_and_kernels_pass_is_clean(cuda):
+    """The dry run (llama3.2-1b's published config, meta tensors) takes no
+    card memory and launches no port kernel; the kernels pass over this
+    build's ptxas reports finds every K1-K17 and no spill, no shared memory
+    or registers past the card's limits."""
+    import gc
+
+    from repro_torch.analysis import kernel_resources
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, counts = torch.cuda.memory_allocated(), kernels.launch_counts()
+    rec = dryrun.run_one("llama3.2-1b", dryrun.shape_for("train_4k", 4, 2048), ef=True,
+                         optimizer="momentum_sgd")
+    assert torch.cuda.memory_allocated() == before == torch.cuda.max_memory_allocated()
+    assert kernels.launch_counts() == counts
+    assert rec["roofline"]["flops"] > rec["roofline"]["model_flops"] > 0
+    findings, table = kernel_resources.run_pass()
+    assert findings == [], [str(f) for f in findings]
+    assert all(row["entries"] for row in kernel_resources.per_kernel(table).values())
