@@ -156,6 +156,27 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    replay of ``live_mask``, 5 ``train.step`` spans and one
    ``adaptive.replan`` span a replan, the drift events those a fresh
    monitor gives on the logged rows and live fractions;
+4e. the model axis (``dist.sharding``), every rank a gloo process on
+   ``cuda:0``: (a) llama3.2-1b at its published config through
+   ``launch.train.run`` on ``--mesh 1x2`` (each rank its model shard's
+   slices of ``init_lm(key(0))``; 4d (a)'s batch, codec, buckets,
+   optimizer and 3 steps), twice: both runs bitwise alike (losses, gnorms,
+   each rank's params and EF rows), both ranks the same losses, the loss
+   falling, step 0's loss within rtol 1e-4 of 4d (a)'s, each rank
+   launching K1, K2 and K4 once a model-local bucket a step, each rank's
+   peak under 30 GB, each step's split beside 4d (a)'s, and whether gloo
+   adds bfloat16 CUDA tensors; (b) llama3.2-1b served on ``--mesh 1x2``:
+   4 x 2,048 prompts and 16 greedy tokens twice bitwise on both ranks,
+   fed 4c (a)'s tokens within a relative L2 of 3e-2 of its logits (the
+   one-rank run made again, its tokens 4c (a)'s), and at 2 layers in
+   float32 within rtol 1e-4 / atol 1e-4 x max|logit| of the one-rank run,
+   the times beside 4c (a)'s; (c) the reduced llama in float32 on 2x2 (4
+   ranks; faithful and two_phase, 3 steps) and 2x2x2 (8 ranks;
+   hierarchical, one step) at once, tnqsgd with EF, telemetry and
+   metrics: every rank's mean slices, EF rows, telemetry row and metrics
+   bitwise the one-device replay of its model shard (the metrics' sums
+   added over the shards), its gnorm the root of the shards' summed
+   squares, its launches as predicted;
 5. times: K1-K10 and K12-K17 and their plain versions at the 4 MB
    (x 8 peers) shape, K2-K9 beside the serial body they replaced (in
    turns), K11 at smallnet's, the mixed plan's and a 4 MB bucket's P
@@ -171,7 +192,7 @@ CUDA card, ``nvcc`` and no JAX.  Phases, each fatal on failure:
    largest LM gradient bucket (268,435,456 elements, one peer; each first
    held to its plain version there), one synced step's wall time per sync
    mode and method, and one per-tensor round's compression phase by phase;
-6. (run after 4d, before 5) the dry run and the analysis passes: (a)
+6. (run after 4e, before 5) the dry run and the analysis passes: (a)
    ``launch.dryrun.run_one`` of phase 4d (a)'s step (llama3.2-1b
    published, 4 x 2,048, faithful tnqsgd 3 bits with EF, momentum SGD) and
    of 4c's 4 x 2,048 prefill on meta tensors, each taking no card memory
@@ -432,7 +453,8 @@ def _leaves(tree) -> list:
 def serving_phase(card: str) -> dict:
     """Phase 4c: the LM zoo's serving path through ``make_serve_fns`` at
     full config on the card (the module docstring lists its checks).
-    Returns llama3.2-1b's 4 x 2,048 prefill ms (two runs)."""
+    Returns llama3.2-1b's 4 x 2,048 prefill ms (two runs), its decode's
+    median ms a token, its greedy tokens and the peak memory."""
     import torch
 
     from repro_torch import kernels
@@ -610,7 +632,8 @@ def serving_phase(card: str) -> dict:
     b64 = lm_batch(cfg, 0, 4, 64, device=dev)
     b2k = lm_batch(cfg, 0, 4, 2048, device=dev)
     _, p64a, p64b, d64 = serve_twice("llama3.2-1b 4 x 64", cfg, params, b64, SERVE_TOKENS)
-    _, p2ka, p2kb, d2k = serve_twice("llama3.2-1b 4 x 2048", cfg, params, b2k, SERVE_TOKENS)
+    toks2k, p2ka, p2kb, d2k = serve_twice("llama3.2-1b 4 x 2048", cfg, params, b2k,
+                                          SERVE_TOKENS)
     share, share_total = span_share(tattn, "flash_attention", cfg, params, b2k)
     peak = torch.cuda.max_memory_allocated()
 
@@ -697,7 +720,8 @@ def serving_phase(card: str) -> dict:
     for label, rec in family_times.items():
         print("[time] " + json.dumps({"serve": label, "batch": 4, **rec, "card": card}))
     print(f"[serve] no port kernel launched; phase wall time {time.time() - t_phase:.1f} s")
-    return {"prefill_ms_4x2048": [p2ka, p2kb], "peak_bytes": peak}
+    return {"prefill_ms_4x2048": [p2ka, p2kb], "peak_bytes": peak,
+            "decode_ms_median_4x2048": statistics.median(d2k), "tokens_4x2048": toks2k.cpu()}
 
 
 TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "2048", "--sync", "faithful",
@@ -739,6 +763,71 @@ class _Split:
                 if self.stack:
                     self.stack[-1] += el
         return timed
+
+
+KERNEL_OPS = ("ef_correct_stats", "bucket_stats", "codebook_encode_pack_residual",
+              "codebook_encode_pack", "codebook_decode_reduce", "codebook_decode_rows")
+
+
+def _instrumented_run(argv: list) -> tuple[dict, list, dict]:
+    """``launch.train.run(argv)`` with each step's parts timed (``_Split``):
+    returns the run's result, each step's ``{split_ms, peak_bytes,
+    launches, compression}`` and the port kernels' launches of the run."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import codecs, prng
+    from repro_torch.dist import train_step as tsmod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim.optimizers import Optimizer
+
+    split = _Split()
+    steps = []
+    saved = {"make_train_step": launcher.make_train_step,
+             "get_optimizer": launcher.get_optimizer, "loss": tsmod._loss_and_grads,
+             "plan": codecs.QuantizerCodec.plan, "uniform": prng.uniform,
+             **{f"ops.{k}": getattr(ops, k) for k in KERNEL_OPS}}
+
+    def make_step(*a, **kw):
+        fn = saved["make_train_step"](*a, **kw)
+
+        def step(*args):
+            torch.cuda.reset_peak_memory_stats()
+            before, split.ms = kernels.launch_counts(), {}
+            out = split.wrap("step", fn)(*args)
+            after = kernels.launch_counts()
+            steps.append({"split_ms": dict(split.ms),
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "launches": {k: after[k] - before[k] for k in after
+                                       if after[k] > before[k]},
+                          "compression": out[-1].get("compression")})
+            return out
+        return step
+
+    def get_opt(*a, **kw):
+        opt = saved["get_optimizer"](*a, **kw)
+        return Optimizer(init=opt.init, update=split.wrap("optimizer", opt.update))
+
+    launcher.make_train_step, launcher.get_optimizer = make_step, get_opt
+    tsmod._loss_and_grads = split.wrap("forward_backward", saved["loss"])
+    codecs.QuantizerCodec.plan = split.wrap("plan", saved["plan"])
+    prng.uniform = split.wrap("draw", saved["uniform"])
+    for k in KERNEL_OPS:
+        setattr(ops, k, split.wrap("kernels", saved[f"ops.{k}"]))
+    kernels.reset_launch_counts()
+    try:
+        out = launcher.run(list(argv))
+    finally:
+        launcher.make_train_step, launcher.get_optimizer = (saved["make_train_step"],
+                                                            saved["get_optimizer"])
+        tsmod._loss_and_grads = saved["loss"]
+        codecs.QuantizerCodec.plan = saved["plan"]
+        prng.uniform = saved["uniform"]
+        for k in KERNEL_OPS:
+            setattr(ops, k, saved[f"ops.{k}"])
+    torch.cuda.synchronize()
+    return out, steps, {k: v for k, v in kernels.launch_counts().items() if v}
 
 
 def _lm_rank(rank: int, world: int, init: str, workdir: str, src: str, device: str) -> None:
@@ -797,7 +886,7 @@ def training_phase(card: str, device: str = "cuda") -> tuple[dict, list]:
     """Phase 4d: the LM zoo's train step on the card (the module docstring
     lists its checks).  Returns the port kernels' launches of (a)'s first
     full-width run and of (b)'s ranks, and (a)'s first run's steps (each
-    step's ms, its split and its peak bytes)."""
+    step's ms, its split, its peak bytes, its loss and gnorm)."""
     import tempfile
 
     import torch
@@ -808,16 +897,15 @@ def training_phase(card: str, device: str = "cuda") -> tuple[dict, list]:
     from repro_torch.adaptive import runtime, telemetry
     from repro_torch.adaptive.controller import AdaptiveConfig
     from repro_torch.configs import get_config, reduced
-    from repro_torch.core import codecs, prng
+    from repro_torch.core import prng
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.dist import compat
     from repro_torch.dist import train_step as tsmod
-    from repro_torch.kernels import ops
     from repro_torch.launch import train as launcher
     from repro_torch.models import transformer as tfm
     from repro_torch.models.smallnet import tree_leaves
-    from repro_torch.optim.optimizers import Optimizer, momentum_sgd
+    from repro_torch.optim.optimizers import momentum_sgd
 
     def resolve(d):
         return torch.device("cuda", 0) if d.type == "cuda" else d
@@ -827,61 +915,15 @@ def training_phase(card: str, device: str = "cuda") -> tuple[dict, list]:
 
     # (a) llama3.2-1b at its published config through the launcher's code
     # path, one rank, twice; each step's parts timed
-    kernel_ops = ("ef_correct_stats", "bucket_stats", "codebook_encode_pack_residual",
-                  "codebook_encode_pack", "codebook_decode_reduce", "codebook_decode_rows")
-
     def full_width_run(extra=()) -> tuple[dict, list, dict]:
-        split = _Split()
-        steps = []
-        saved = {"make_train_step": launcher.make_train_step,
-                 "get_optimizer": launcher.get_optimizer, "loss": tsmod._loss_and_grads,
-                 "plan": codecs.QuantizerCodec.plan, "uniform": prng.uniform,
-                 **{f"ops.{k}": getattr(ops, k) for k in kernel_ops}}
-
-        def make_step(*a, **kw):
-            fn = saved["make_train_step"](*a, **kw)
-
-            def step(*args):
-                torch.cuda.reset_peak_memory_stats()
-                before, split.ms = kernels.launch_counts(), {}
-                out = split.wrap("step", fn)(*args)
-                after = kernels.launch_counts()
-                steps.append({"split_ms": dict(split.ms),
-                              "peak_bytes": torch.cuda.max_memory_allocated(),
-                              "launches": {k: after[k] - before[k] for k in after
-                                           if after[k] > before[k]},
-                              "compression": out[-1].get("compression")})
-                return out
-            return step
-
-        def get_opt(*a, **kw):
-            opt = saved["get_optimizer"](*a, **kw)
-            return Optimizer(init=opt.init, update=split.wrap("optimizer", opt.update))
-
-        launcher.make_train_step, launcher.get_optimizer = make_step, get_opt
-        tsmod._loss_and_grads = split.wrap("forward_backward", saved["loss"])
-        codecs.QuantizerCodec.plan = split.wrap("plan", saved["plan"])
-        prng.uniform = split.wrap("draw", saved["uniform"])
-        for k in kernel_ops:
-            setattr(ops, k, split.wrap("kernels", saved[f"ops.{k}"]))
-        kernels.reset_launch_counts()
-        try:
-            out = launcher.run(TRAIN_ARGV + list(extra))
-        finally:
-            launcher.make_train_step, launcher.get_optimizer = (saved["make_train_step"],
-                                                                saved["get_optimizer"])
-            tsmod._loss_and_grads = saved["loss"]
-            codecs.QuantizerCodec.plan = saved["plan"]
-            prng.uniform = saved["uniform"]
-            for k in kernel_ops:
-                setattr(ops, k, saved[f"ops.{k}"])
-        torch.cuda.synchronize()
-        return out, steps, {k: v for k, v in kernels.launch_counts().items() if v}
+        return _instrumented_run(TRAIN_ARGV + list(extra))
 
     t0 = time.time()
     first, steps_a, counts_a = full_width_run()
     wall_a = time.time() - t0
     hist = first["history"]
+    for st, h in zip(steps_a, hist):
+        st["loss"], st["gnorm"] = h["loss"], h["gnorm"]
     n_params = sum(t.numel() for t in tree_leaves(first["params"]))
     n_buckets = len(tsmod.local_bucket_sizes(first["params"], tsmod.TrainStepConfig(bucket_mb=4.0)))
     final = [t.cpu() for t in tree_leaves(first["params"])]
@@ -1104,7 +1146,8 @@ def training_phase(card: str, device: str = "cuda") -> tuple[dict, list]:
     launcher_obs_phase(device)
     print(f"[train] phase wall time {time.time() - t_phase:.1f} s")
     return ({k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in set(counts_a) | set(counts_b)},
-            [{k: s[k] for k in ("step_ms", "split_ms", "peak_bytes")} for s in steps_a])
+            [{k: s[k] for k in ("step_ms", "split_ms", "peak_bytes", "loss", "gnorm")}
+             for s in steps_a])
 
 
 def obs_checks(obs_dir: str, steps_a: list, steps_b: list, n_buckets: int, sizes: list,
@@ -1252,6 +1295,520 @@ def launcher_obs_phase(device: str) -> None:
           f"dropouts at steps {[e['step'] for e in dropouts]} as the schedule; {n_replan} replan "
           f"spans; {len(drift)} drift events as a fresh monitor gives them "
           f"({json.dumps([e['message'] for e in drift])}); {time.time() - t0:.1f} s")
+
+
+# -- phase 4e: the model axis ------------------------------------------------
+
+TP_ARGV = TRAIN_ARGV + ["--mesh", "1x2"]   # 4d (a)'s run on a (data, model) = (1, 2) mesh
+TP_RANKS = 2                       # gloo ranks on cuda:0, one model shard each
+TP_MAX_PEAK_GB = 30.0              # (a): each rank's peak
+# (a): step 0's loss against 4d (a)'s: the bfloat16 partials of the row-split
+# products are rounded before they are summed.  Measured 2.0e-6 on the card;
+# the bound is 50 times that and 20 times under one bfloat16 ulp (2**-9)
+TP_STEP0_RTOL = 1e-4
+TP_SERVE_REL_L2 = DECODE_BF16_REL_L2   # (b): bfloat16 logits against 4c (a)'s, relative L2
+TP_BUCKET_MB = 1.0                 # (c): a few model-local buckets of the reduced llama
+# (c): label -> (mesh sizes, axis names, sync modes, steps)
+TP_LAYOUTS = {"2x2": ((2, 2), ("data", "model"), ("faithful", "two_phase"), TRAIN_STEPS),
+              "2x2x2": ((2, 2, 2), ("pod", "data", "model"), ("hierarchical",), 1)}
+
+
+def _spawn_all(jobs: list) -> list:
+    """Each job ``(fn, n, args, label)`` as ``fn(rank, n, init, workdir,
+    *args)`` on ``n`` spawned ranks, all jobs at once; each rank writes
+    ``workdir/rank<r>.pt``.  Returns every job's results in rank order.
+    Fails when a rank raises or the ranks pass ``MESH_TIMEOUT_S``."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    dirs = [tempfile.TemporaryDirectory() for _ in jobs]
+    try:
+        t0 = time.time()
+        ctxs = [tmp.start_processes(fn, args=(n, f"file://{wd.name}/rendezvous", wd.name)
+                                    + tuple(args), nprocs=n, join=False, start_method="spawn")
+                for (fn, n, args, _), wd in zip(jobs, dirs)]
+        try:
+            for ctx, (_, _, _, label) in zip(ctxs, jobs):
+                try:
+                    while not ctx.join(timeout=5):
+                        if time.time() - t0 > MESH_TIMEOUT_S:
+                            fail(f"{label}: ranks still running after {MESH_TIMEOUT_S} s")
+                except Exception as e:  # a rank raised: report its traceback
+                    fail(f"{label}: a rank failed: {e}")
+        finally:
+            for ctx in ctxs:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+                    p.join(timeout=30)
+        return [[torch.load(os.path.join(wd.name, f"rank{r}.pt"), weights_only=False)
+                 for r in range(n)] for (_, n, _, _), wd in zip(jobs, dirs)]
+    finally:
+        for wd in dirs:
+            wd.cleanup()
+
+
+def _spawn(fn, n: int, args: tuple, label: str) -> list:
+    """One job of :func:`_spawn_all`."""
+    return _spawn_all([(fn, n, args, label)])[0]
+
+
+def _tp_train_rank(rank: int, world: int, init: str, workdir: str, src: str) -> None:
+    """One rank of 4e (a): ``launch.train.run(TP_ARGV)`` twice, each step's
+    parts timed; writes both runs' histories, steps and launches, whether
+    the runs' final params and EF rows are bitwise alike, and whether gloo
+    sums a bfloat16 CUDA tensor."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.smallnet import tree_leaves
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        probe = torch.full((8,), rank + 1.0, dtype=torch.bfloat16, device="cuda:0")
+        try:
+            dist.all_reduce(probe)
+            bf16 = f"accepted (sum {float(probe[0])})"
+        except Exception as e:  # record the refusal
+            bf16 = f"refused ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+        runs, finals = [], []
+        for _ in range(2):
+            out, steps, counts = _instrumented_run(TP_ARGV)
+            finals.append(([t.cpu() for t in tree_leaves(out["params"])],
+                           [e.cpu() for e in out["ef_state"]]))
+            runs.append({"history": out["history"], "counts": counts,
+                         "steps": [{k: v for k, v in st.items() if k != "compression"}
+                                   for st in steps]})
+            del out
+            torch.cuda.empty_cache()
+        (pa, ea), (pb, eb) = finals
+        same = (all(torch.equal(x, y) for x, y in zip(pa, pb, strict=True))
+                and all(torch.equal(x, y) for x, y in zip(ea, eb, strict=True)))
+        torch.save({"runs": runs, "same": same, "bf16_all_reduce": bf16,
+                    "n_params": sum(t.numel() for t in pa), "ef_sizes": [e.numel() for e in ea]},
+                   os.path.join(workdir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_serve_rank(rank: int, world: int, init: str, workdir: str, src: str) -> None:
+    """One rank of 4e (b): llama3.2-1b served on a (1, 2) mesh (its slices
+    of ``init_lm(key(0))``): 4 x 2,048 prompts and 16 greedy tokens twice,
+    then fed the one-rank run's tokens; and float32 at 2 layers fed the
+    one-rank run's tokens.  Rank 0 makes the one-rank runs (4c (a)'s and
+    (b)'s, on the full params).  Writes the tokens, logits and times."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist import compat, sharding
+    from repro_torch.dist.serve_step import make_serve_fns
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import _float32_and_deterministic
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    _float32_and_deterministic()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        mesh = compat.Mesh((1, world), ("data", "model"))
+
+        def run(fns, params, batch, n_tokens, forced=None):
+            """Prefill, then ``n_tokens - 1`` decode steps, greedy or fed
+            ``forced``'s tokens: (tokens, logits (n, B, V) on the host,
+            prefill ms, each decode step's ms)."""
+            prefill_fn, decode_fn = fns[:2]
+            t = batch.tokens.shape[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            pre = (time.perf_counter() - t0) * 1e3
+            outs, toks, dec = [logits.cpu()], [logits.argmax(-1)[:, None]], []
+            for i in range(n_tokens - 1):
+                tok = toks[-1] if forced is None else forced[:, i:i + 1].to(dev)
+                t0 = time.perf_counter()
+                logits, caches = decode_fn(params, tok, caches, t + i)
+                torch.cuda.synchronize()
+                dec.append((time.perf_counter() - t0) * 1e3)
+                outs.append(logits.cpu())
+                toks.append(logits.argmax(-1)[:, None])
+            return torch.cat(toks, 1).cpu(), torch.stack(outs), pre, dec
+
+        cfg = get_config("llama3.2-1b")
+        b2k, b64 = lm_batch(cfg, 0, 4, 2048, dev), lm_batch(cfg, 0, 4, 64, dev)
+        full = init_lm(prng.key(0), cfg, device=dev)
+        cfg2 = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+        full2 = _tmap(lambda t: t.float(), dict(full, blocks=_tmap(lambda t: t[:2],
+                                                                   full["blocks"])))
+        # the one-rank runs on rank 0; their tokens fed to both ranks
+        ref = ref2 = None
+        toks = torch.zeros((4, SERVE_TOKENS), dtype=torch.int64)
+        toks2 = torch.zeros((4, 5), dtype=torch.int64)
+        if rank == 0:
+            ref = run(make_serve_fns(cfg, 2048), full, b2k, SERVE_TOKENS)
+            ref2 = run(make_serve_fns(cfg2, 64), full2, b64, 5)
+            toks, toks2 = ref[0], ref2[0]
+        dist.broadcast(toks, 0)
+        dist.broadcast(toks2, 0)
+        params = sharding.shard_tree(full, sharding.lm_pspecs(cfg, mesh), mesh)
+        params2 = sharding.shard_tree(full2, sharding.lm_pspecs(cfg2, mesh), mesh)
+        del full, full2
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fns = make_serve_fns(cfg, 2048, mesh)
+        greedy = [run(fns, params, b2k, SERVE_TOKENS) for _ in range(2)]
+        forced = run(fns, params, b2k, SERVE_TOKENS, forced=toks)
+        forced2 = run(make_serve_fns(cfg2, 64, mesh), params2, b64, 5, forced=toks2)
+        torch.save({"ref": ref, "greedy": greedy, "forced": forced, "ref2": ref2,
+                    "forced2": forced2, "peak_bytes": torch.cuda.max_memory_allocated()},
+                   os.path.join(workdir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_reduced_rank(rank: int, world: int, init: str, workdir: str, src: str,
+                     layout: str, device: str) -> None:
+    """One rank of 4e (c): the reduced llama in float32 on ``layout``'s mesh,
+    each sync mode of it with EF, telemetry and metrics through
+    ``make_train_step``; writes every sync's inputs and outputs and the
+    launches."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.adaptive.controller import AdaptiveConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import prng
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist import compat, sharding
+    from repro_torch.dist import train_step as tsmod
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizers import momentum_sgd
+    from repro_torch.train import _float32_and_deterministic
+
+    torch.set_num_threads(1)
+    _float32_and_deterministic()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        sizes, names, syncs, steps = TP_LAYOUTS[layout]
+        dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = compat.Mesh(sizes, names)
+        n_dp = math.prod(mesh.dp_sizes)
+        cfg = reduced(get_config("llama3.2-1b"))
+        params = sharding.shard_tree(init_lm(prng.key(0), cfg, device=dev),
+                                     sharding.lm_pspecs(cfg, mesh), mesh)
+        out = {"coords": mesh.coords}
+        real = tsmod.make_sync_fn
+        for sync in syncs:
+            ts = tsmod.TrainStepConfig(sync=sync, bucket_mb=TP_BUCKET_MB, error_feedback=True,
+                                       adaptive=AdaptiveConfig(), metrics_compression=True,
+                                       compressor=CompressorConfig(method="tnqsgd", bits=3))
+            calls = []
+
+            def recording(ts_, mesh_, like):
+                fn = real(ts_, mesh_, like)
+
+                def sync_fn(grads, key, ef, tstate):
+                    res = fn(grads, key, ef, tstate)
+                    calls.append({"in": ([g.cpu() for g in grads], key.cpu(),
+                                         [e.cpu() for e in ef], [t.cpu() for t in tstate]),
+                                  "out": ([m.cpu() for m in res[0]], [e.cpu() for e in res[1]],
+                                          [t.cpu() for t in res[2]], res[3].cpu(),
+                                          [f.cpu() for f in res[4]])})
+                    return res
+                return sync_fn
+
+            tsmod.make_sync_fn = recording
+            try:
+                opt = momentum_sgd(lr=0.05)
+                batches = [lm_batch(cfg, i, 2 * n_dp, 64, dev) for i in range(steps)]
+                fn = tsmod.make_train_step(cfg, mesh, opt, ts, batches[0], params_like=params)
+                p, o = params, opt.init(params)
+                ef = tsmod.init_ef_state(params, ts)
+                t = tsmod.init_telemetry_state(params, ts)
+                kernels.reset_launch_counts()
+                losses = []
+                for i, b in enumerate(batches):
+                    p, o, ef, t, m = fn(p, o, ef, t, b, i)
+                    losses.append(float(m["loss"][0]))
+                counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            finally:
+                tsmod.make_sync_fn = real
+            out[sync] = {"calls": calls, "counts": counts, "losses": losses,
+                         "n_buckets": len(ef)}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _model_axis_reduced(device: str) -> dict:
+    """Phase 4e (c) on ``device``: the reduced llama on the meshes of
+    ``TP_LAYOUTS``, every rank's syncs against the one-device replay of its
+    model shard on ``device`` (no launch on the CPU).  Returns every rank's
+    port kernel launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.adaptive import telemetry
+    from repro_torch.adaptive.controller import AdaptiveConfig
+    from repro_torch.core.compressors import CompressorConfig, bucket_concat, plan_buckets
+    from repro_torch.dist import train_step as tsmod
+    from repro_torch.dist.reference import reference_sync_state
+    from repro_torch.obs import metrics as obs_metrics
+
+    src = str(ROOT / "src")
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    kn = {k: kernels.kernel_name(k) for k in kernels.KERNELS}
+    k1, k2, k4, k6, k8, k10 = (kn[kernels.ef_correct_stats_2d],
+                               kn[kernels.codebook_encode_pack_resid_2d],
+                               kn[kernels.codebook_decode_reduce_3d],
+                               kn[kernels.codebook_encode_pack_2d],
+                               kn[kernels.codebook_decode_rows_3d], kn[kernels.bucket_stats_2d])
+    launches = {}
+    want_rows = {"faithful": {k1: 1, k2: 1, k4: 1},
+                 "two_phase": {k1: 1, k2: 1, k4: 1, k10: 1, k6: 1, k8: 1},
+                 "hierarchical": {k1: 1, k2: 2, k4: 2, k10: 2, k6: 1, k8: 1}}
+    t0 = time.time()
+    jobs = [(_tp_reduced_rank, math.prod(sizes), (src, layout, device), f"model axis {layout}")
+            for layout, (sizes, _, _, _) in TP_LAYOUTS.items()]
+    results = _spawn_all(jobs)      # the meshes' ranks run at once
+    print(f"[model] (c) {' and '.join(TP_LAYOUTS)} ranks' wall {time.time() - t0:.1f} s")
+    for (layout, (sizes, names, syncs, steps)), ranks in zip(TP_LAYOUTS.items(), results):
+        n_model = sizes[-1]
+        n_dp = len(ranks) // n_model
+        dp_sizes = tuple(sizes[:-1])
+        for sync in syncs:
+            ts = tsmod.TrainStepConfig(sync=sync, bucket_mb=TP_BUCKET_MB, error_feedback=True,
+                                       adaptive=AdaptiveConfig(), metrics_compression=True,
+                                       compressor=CompressorConfig(method="tnqsgd", bits=3))
+            for r, rk in enumerate(ranks):
+                nb = rk[sync]["n_buckets"]
+                want = ({k: v * nb * steps for k, v in want_rows[sync].items()}
+                        if dev.type == "cuda" else {})
+                check(rk[sync]["counts"] == want, f"model axis {layout} {sync}: rank {r}'s "
+                                                  f"launches {rk[sync]['counts']}, expected {want}")
+                for k, v in rk[sync]["counts"].items():
+                    launches[k] = launches.get(k, 0) + v
+            for i in range(steps):
+                own_sq, sums = [], []
+                for m in range(n_model):
+                    calls = [ranks[d * n_model + m][sync]["calls"][i] for d in range(n_dp)]
+                    grads, key, _, _ = calls[0]["in"]
+                    check(all(torch.equal(c["in"][1], key) for c in calls)
+                          and torch.equal(ranks[0][sync]["calls"][i]["in"][1], key),
+                          f"model axis {layout} {sync}: the step keys differ")
+                    stacked = [torch.stack([c["in"][0][j] for c in calls]).to(dev)
+                               for j in range(len(grads))]
+                    ef = [torch.stack([c["in"][2][b] for c in calls]).to(dev)
+                          for b in range(len(calls[0]["in"][2]))]
+                    n_fields = len(calls[0]["in"][3])
+                    tst = telemetry.TelemetryState(*(
+                        torch.stack([c["in"][3][f] for c in calls]).to(dev)
+                        for f in range(n_fields)))
+                    captured, real_fin = [], obs_metrics.finalize
+
+                    def spy(s_, static, n_, _real=real_fin, _out=captured):
+                        _out.append((s_.clone(), static))
+                        return _real(s_, static, n_)
+
+                    obs_metrics.finalize = spy
+                    try:
+                        wmean, wres, wt, _ = reference_sync_state(ts, stacked, dp_sizes,
+                                                                  key.to(dev), ef=ef, tstate=tst)
+                    finally:
+                        obs_metrics.finalize = real_fin
+                    sums.append(captured)
+                    bp = plan_buckets([x.numel() for x in wmean], ts.bucket_elements)
+                    own_sq.append(tsmod._sum_of_squares(bucket_concat(list(wmean), bp)))
+                    for d, c in enumerate(calls):
+                        mean, ef_out, t_out, _, _ = c["out"]
+                        check(all(torch.equal(a, b.cpu())
+                                  for a, b in zip(mean, wmean, strict=True)),
+                              f"model axis {layout} {sync} step {i}: rank ({d}, {m})'s mean "
+                              "slices are not its shard's replay")
+                        check(all(torch.equal(a, b[d].cpu()) for a, b in zip(ef_out, wres,
+                                                                               strict=True)),
+                              f"model axis {layout} {sync} step {i}: rank ({d}, {m})'s EF rows")
+                        check(all(torch.equal(a, b[d].cpu()) for a, b in zip(t_out, wt,
+                                                                               strict=True)),
+                              f"model axis {layout} {sync} step {i}: rank ({d}, {m})'s "
+                              "telemetry row")
+                gsq = own_sq[0]
+                for m in range(1, n_model):
+                    gsq = gsq + own_sq[m]
+                for d in range(n_dp):
+                    s_, static = sums[0][d]
+                    for m in range(1, n_model):
+                        s_ = s_ + sums[m][d][0]
+                    want_cm = obs_metrics.finalize(s_, static, n_model)
+                    for m in range(n_model):
+                        _, _, _, gnorm, cm = ranks[d * n_model + m][sync]["calls"][i]["out"]
+                        check(torch.equal(gnorm, torch.sqrt(gsq).cpu()),
+                              f"model axis {layout} {sync} step {i}: rank ({d}, {m})'s gnorm "
+                              "is not the root of the shards' summed squares")
+                        check(all(torch.equal(a, b.cpu()) for a, b in zip(cm, want_cm,
+                                                                           strict=True)),
+                              f"model axis {layout} {sync} step {i}: rank ({d}, {m})'s metrics")
+            print(f"[model] (c) {layout} {sync}: {len(ranks)} gloo ranks on {dev}, reduced "
+                  f"llama3.2-1b float32, tnqsgd 3 bits with EF, telemetry and metrics, {steps} "
+                  f"step(s), {ranks[0][sync]['n_buckets']} model-local buckets: every rank's "
+                  f"mean slices, EF rows, telemetry row and metrics bitwise its model shard's "
+                  f"one-device replay, its gnorm the root of the shards' summed squares; losses "
+                  f"{ranks[0][sync]['losses']}; launches a rank "
+                  f"{json.dumps(ranks[0][sync]['counts'])}")
+        del ranks
+    return launches
+
+
+def model_axis_phase(card: str, steps_4d: list, served: dict) -> dict:
+    """Phase 4e: the model axis on the card (the module docstring lists its
+    checks).  ``steps_4d`` and ``served`` are 4d (a)'s first run's steps
+    and 4c's llama results.  Returns every rank's port kernel launches."""
+    import torch
+
+    from repro_torch import kernels
+
+    t_phase = time.time()
+    src = str(ROOT / "src")
+    dev = torch.device("cuda", 0)
+    kn = {k: kernels.kernel_name(k) for k in kernels.KERNELS}
+    k1, k2, k4, k6, k8, k10 = (kn[kernels.ef_correct_stats_2d],
+                               kn[kernels.codebook_encode_pack_resid_2d],
+                               kn[kernels.codebook_decode_reduce_3d],
+                               kn[kernels.codebook_encode_pack_2d],
+                               kn[kernels.codebook_decode_rows_3d], kn[kernels.bucket_stats_2d])
+    launches = {}
+
+    # (a) llama3.2-1b at its published config on (1, 2), through the launcher
+    t0 = time.time()
+    ranks = _spawn(_tp_train_rank, TP_RANKS, (src,), "model axis (a)")
+    wall_a = time.time() - t0
+    hist0 = ranks[0]["runs"][0]["history"]
+    for r, rk in enumerate(ranks):
+        a, b = rk["runs"]
+        check(rk["same"] and a["history"] == b["history"],
+              f"model axis (a): rank {r}'s two runs differ: {a['history']} vs {b['history']}")
+        check(a["history"] == hist0, f"model axis (a): rank {r}'s losses {a['history']} are not "
+                                     f"rank 0's {hist0}")
+        nb = len(rk["ef_sizes"])
+        per_step = {k1: nb, k2: nb, k4: nb}
+        for run in (a, b):
+            for s in run["steps"]:
+                check(s["launches"] == per_step, f"model axis (a): rank {r}'s launches a step "
+                                                 f"{s['launches']}, expected {per_step}")
+            check(run["counts"] == {k: v * TRAIN_STEPS for k, v in per_step.items()},
+                  f"model axis (a): rank {r}'s launches of a run {run['counts']}")
+        for k, v in a["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+    losses = [h["loss"] for h in hist0]
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"]) for h in hist0),
+          f"model axis (a): non-finite loss or gnorm {hist0}")
+    check(losses[-1] < losses[0], f"model axis (a): the loss did not fall: {losses}")
+    step0_4d = steps_4d[0]["loss"]
+    step0_rel = abs(losses[0] - step0_4d) / abs(step0_4d)
+    check(step0_rel <= TP_STEP0_RTOL, f"model axis (a): step 0's loss {losses[0]} is {step0_rel:g} "
+                                      f"from 4d (a)'s {step0_4d} (rtol {TP_STEP0_RTOL:g})")
+    peaks = [max(s["peak_bytes"] for run in rk["runs"] for s in run["steps"]) for rk in ranks]
+    check(max(peaks) <= TP_MAX_PEAK_GB * 1e9, f"model axis (a): peaks {peaks} past "
+                                               f"{TP_MAX_PEAK_GB} GB")
+    for rk in ranks:
+        for run in rk["runs"]:
+            for s in run["steps"]:
+                s["split_ms"]["other"] = s["split_ms"].pop("step")
+                s["step_ms"] = sum(s["split_ms"].values())
+    print(f"[model] (a) llama3.2-1b at its published config on --mesh 1x2 ({TP_RANKS} gloo ranks "
+          f"on cuda:0, {ranks[0]['n_params']:,} parameters a rank, "
+          f"{len(ranks[0]['ef_sizes'])} model-local buckets of up to "
+          f"{max(ranks[0]['ef_sizes']):,} elements), faithful tnqsgd 3 bits with EF, "
+          f"{TRAIN_STEPS} steps, twice bit for bit (losses, gnorms, each rank's params and EF); "
+          f"losses {losses}; step 0 {step0_rel:.3g} from 4d (a)'s {step0_4d:.6f} (rtol "
+          f"{TP_STEP0_RTOL:g}); peaks {[round(p / 1e9, 2) for p in peaks]} GB; gloo on a "
+          f"bfloat16 CUDA all_reduce: {ranks[0]['bf16_all_reduce']}; wall {wall_a:.1f} s")
+    for i, s4 in enumerate(steps_4d):
+        per_rank = [rk["runs"][0]["steps"][i] for rk in ranks]
+        print(f"[model] (a) step {i}: ms a rank {[round(s['step_ms'], 1) for s in per_rank]} "
+              f"(4d (a) one rank {s4['step_ms']:.1f}); split rank 0 "
+              f"{json.dumps({k: round(v, 1) for k, v in per_rank[0]['split_ms'].items()})}, "
+              f"4d (a) {json.dumps({k: round(v, 1) for k, v in s4['split_ms'].items()})}")
+    for r, rk in enumerate(ranks):
+        for label, run in zip(("first", "second"), rk["runs"]):
+            for i, s in enumerate(run["steps"]):
+                print("[time] " + json.dumps({
+                    "train": "llama3.2-1b", "mesh": "1x2", "rank": r, "run": label, "step": i,
+                    "step_ms": s["step_ms"], "split_ms": s["split_ms"],
+                    "max_memory_allocated_bytes": s["peak_bytes"], "batch": 4, "seq": 2048,
+                    "sync": "faithful", "ranks": TP_RANKS, "card": card}))
+    del ranks
+
+    # (b) serving llama3.2-1b on (1, 2)
+    t0 = time.time()
+    ranks = _spawn(_tp_serve_rank, TP_RANKS, (src,), "model axis (b)")
+    wall_b = time.time() - t0
+    rel_l2, err2, scale2 = 0.0, 0.0, 0.0
+    ref, ref2 = ranks[0]["ref"], ranks[0]["ref2"]
+    check(torch.equal(ref[0], served["tokens_4x2048"]), "model axis (b): the one-rank run is not "
+                                                        "4c (a)'s")
+    for r, rk in enumerate(ranks):
+        (ta, la, pa, da), (tb, lb, pb, db) = rk["greedy"]
+        check(torch.equal(ta, tb) and torch.equal(la, lb),
+              f"model axis (b): rank {r}'s two greedy runs differ")
+        check(torch.equal(la, ranks[0]["greedy"][0][1]), f"model axis (b): rank {r}'s logits "
+                                                         "are not rank 0's")
+        want, got = ref[1].float(), rk["forced"][1].float()
+        rel = [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
+        check(max(rel) <= TP_SERVE_REL_L2, f"model axis (b): bfloat16 logits {max(rel):g} "
+                                           f"relative L2 from 4c (a)'s (bound {TP_SERVE_REL_L2:g})")
+        want2, got2 = ref2[1], rk["forced2"][1]
+        scale = float(want2.abs().max())
+        diff = (got2 - want2).abs()
+        check(bool((diff <= SERVE_RTOL * scale + SERVE_RTOL * want2.abs()).all()),
+              f"model axis (b): float32 at 2 layers off the one-rank run by "
+              f"{float(diff.max()):g} (max |logit| {scale:g})")
+        rel_l2, err2, scale2 = max(rel_l2, max(rel)), max(err2, float(diff.max())), scale
+    rk = ranks[0]
+    (ta, _, pa, da), (_, _, pb, db) = rk["greedy"]
+    agree = int((ta == ref[0]).all(0).long().cumprod(0).sum())
+    print(f"[model] (b) llama3.2-1b served on --mesh 1x2: 4 x 2,048 prompts, {SERVE_TOKENS} "
+          f"greedy tokens twice bit for bit on both ranks; fed 4c (a)'s tokens, bfloat16 "
+          f"logits within relative L2 {rel_l2:.3g} of 4c (a)'s (bound {TP_SERVE_REL_L2:g}); "
+          f"its own greedy tokens agree with 4c (a)'s for the first {agree} of {SERVE_TOKENS}; "
+          f"float32 at 2 layers, prefill and 4 decode steps: max abs err "
+          f"{err2:.3g}, max |logit| {scale2:.4g} (rtol {SERVE_RTOL:g}, atol "
+          f"{SERVE_RTOL:g} x max |logit|); prefill {pa:.2f} / {pb:.2f} ms (4c (a) one rank "
+          f"{served['prefill_ms_4x2048'][0]:.2f} / {served['prefill_ms_4x2048'][1]:.2f}), "
+          f"decode median {statistics.median(da + db):.2f} ms a token (4c (a) "
+          f"{served['decode_ms_median_4x2048']:.2f}); wall {wall_b:.1f} s")
+    print("[time] " + json.dumps({
+        "serve": "llama3.2-1b", "mesh": "1x2", "batch": 4, "prefill_ms_4x2048": [pa, pb],
+        "decode_ms_per_token_median_4x2048": statistics.median(da + db),
+        "max_memory_allocated_bytes_per_rank": [x["peak_bytes"] for x in ranks],
+        "one_rank_prefill_ms_4x2048": served["prefill_ms_4x2048"],
+        "one_rank_decode_ms_per_token_median_4x2048": served["decode_ms_median_4x2048"],
+        "card": card}))
+    del ranks
+
+    # (c) the reduced llama on 2x2 and 2x2x2, every rank's syncs against the
+    # one-device replay of its model shard
+    for k, v in _model_axis_reduced("cuda").items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[model] phase wall time {time.time() - t_phase:.1f} s")
+    return launches
 
 
 DRYRUN_OPTIMIZER = "momentum_sgd"  # phase 4d (a)'s: the launcher's default
@@ -2744,6 +3301,10 @@ def main() -> int:
     # -- 4d. training -----------------------------------------------------
     trained, train_steps = training_phase(card)
     for k, v in trained.items():
+        launches[k] += v
+
+    # -- 4e. the model axis ----------------------------------------------
+    for k, v in model_axis_phase(card, train_steps, served).items():
         launches[k] += v
 
     # -- 6. the dry run beside 4c and 4d, and the analysis passes ----------

@@ -10,7 +10,9 @@ LRU bound (``max_cached_steps``) and switching rule.  Between replans the
 stepper dispatches to the cached step; at a replan boundary it gathers
 every rank's telemetry row (one all-gather per field over the mesh, the
 counterpart of JAX pulling the stacked state to the host), merges the
-rows, estimates tails and densities, re-solves the allocation and switches
+rows (on a model axis, model rank 0's merge, the shard whose buffer a
+host read of JAX's state returns, so every model shard adopts the same
+bits), estimates tails and densities, re-solves the allocation and switches
 only when the new plan's predicted error beats the *current* plan's (under
 the same fresh tails) by ``switch_threshold``: hysteresis against
 noisy-tail oscillation.  Under an elastic schedule the budget is re-based
@@ -25,7 +27,7 @@ import math
 from typing import Any
 
 from repro_torch.core import prng
-from repro_torch.dist import compat
+from repro_torch.dist import compat, sharding
 from repro_torch.dist import train_step as tsmod
 from repro_torch.dist.train_step import TrainStepConfig, make_train_step
 from repro_torch.elastic.schedule import expected_live_fraction
@@ -44,7 +46,9 @@ class AdaptiveStepper:
     The current plan is exposed as ``stepper.plan`` (a
     :class:`~repro_torch.adaptive.controller.BitPlan`), ``None`` until the
     first replan — before that the uniform ``ts.compressor.bits`` plan runs.
-    ``mesh`` is the data-parallel mesh every rank builds its stepper on.
+    ``mesh`` is the mesh every rank builds its stepper on; ``params_like``
+    this rank's params (its model shard's slices), or None for the meta
+    init cut by the mesh's specs.
 
     Observability hooks (both optional, keyword-only): ``obs`` is a
     :class:`repro_torch.obs.SpanRecorder` — the replan path (telemetry
@@ -75,6 +79,9 @@ class AdaptiveStepper:
             # shapes only: the meta device allocates nothing
             # repro: allow REPRO204 (a meta draw has no values: the key shapes nothing)
             params_like = transformer.init_lm(prng.key(0), cfg, device="meta")
+            if mesh is not None and mesh.model_size > 1:
+                params_like = sharding.shard_tree(params_like, sharding.lm_pspecs(cfg, mesh),
+                                                  mesh)
         # The plan/telemetry hot loop never full-sorts: force the histogram
         # quantile for g_min unless the caller already chose.
         if not ts.compressor.approx_gmin:
@@ -92,6 +99,7 @@ class AdaptiveStepper:
         # adopted past ``live_hysteresis`` (1.0 = full participation).
         self._live_frac = 1.0
         self._n_dp = math.prod(mesh.dp_sizes)
+        # this rank's bucket sizes: the model-local slices of its params
         self.sizes = tsmod.local_bucket_sizes(params_like, ts)
         self.bits = (ts.compressor.bits,) * len(self.sizes)
         self._cache[self.bits] = self._build(None)
@@ -118,15 +126,20 @@ class AdaptiveStepper:
                             live_frac=self._live_frac)
 
     def _merged(self, tstate) -> telemetry.TelemetryState:
-        """Every rank's telemetry row gathered over the mesh (a stepper
-        without one holds the only row) and merged (``aggregate_peers``)."""
+        """Every client's telemetry row gathered over the manual axes (a
+        stepper without a mesh holds the only row) and merged
+        (``aggregate_peers``); on a model axis, model rank 0's merge."""
         if self.mesh is None:
             rows = telemetry.stack_rows([tstate])
         else:
-            dp = self.mesh.axis_names
+            dp = self.mesh.dp_axes
             rows = telemetry.TelemetryState(*(compat.all_gather_stacked(f, self.mesh, dp)
                                               for f in tstate))
-        return telemetry.aggregate_peers(rows)
+        merged = telemetry.aggregate_peers(rows)
+        if self.mesh is not None and self.mesh.model_size > 1:
+            merged = type(merged)(*(compat.all_gather_stacked(f, self.mesh, "model")[0]
+                                    for f in merged))
+        return merged
 
     def replan(self, tstate: Any, step: int = 0) -> BitPlan:
         """Merge peer telemetry, estimate tails/densities, re-solve bits, and

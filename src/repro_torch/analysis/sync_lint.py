@@ -25,6 +25,13 @@ every op:
   ``all_gather_stacked`` or ``all_to_all_rows`` in a compressed mode (the
   wire contract: one word vector a bucket).
 
+The same four ranks also run each mode on a (data, model) = (2, 2) mesh
+(``model:`` cases, tnqsgd), with and without ``metrics_compression`` and
+``metrics_gnorm``: the metric sums share the gnorm's one model-group sum,
+so the metrics add no collective, and with the gnorm off they add one sum
+at most (REPRO101 otherwise; the port of JAX's
+``tests/test_obs.py::test_collective_count_unchanged``).
+
 Each finding is anchored at ``path:line`` of the innermost frame of the
 port's package outside this pass (outside ``core/prng.py`` for a draw), so
 the ``# repro: allow REPROxxx`` comments work; a run label otherwise.
@@ -72,6 +79,10 @@ MODES = ("faithful", "two_phase", "hierarchical", "dsgd")
 QUICK_METHODS = ("tqsgd", "powersgd", "dsgd")
 #: reference replays are method-redundant; one per decode family
 _REFERENCE_METHODS = ("tqsgd", "tnqsgd", "powersgd", "dsgd")
+#: the (data, model) mesh of the metric-invariance cases
+MODEL_MESH = ((2, 2), ("data", "model"))
+#: (metrics_compression, metrics_gnorm) of each model-mesh case
+_METRIC_VARIANTS = ((False, True), (True, True), (False, False), (True, False))
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +329,53 @@ def reference_case(method: str, mode: str, device) -> tuple[str, dict]:
                            compressed=not (mode == "dsgd" or method == "dsgd"))
 
 
+def model_label(mode: str, metrics: bool, gnorm: bool) -> str:
+    return f"model:{mode}/tnqsgd{'+metrics' if metrics else ''}{'' if gnorm else '-gnorm'}"
+
+
+def model_case(mode: str, metrics: bool, gnorm: bool, meshes: dict,
+               device) -> tuple[str, dict]:
+    """One mode on the (data, model) mesh ``meshes["data_model"]``: each
+    rank syncs its model shard's leaves over the data axis; the gnorm's
+    square and the metric sums take the model group's one sum."""
+    from repro_torch.core import prng
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.dist.train_step import TrainStepConfig, local_bucket_sizes, make_sync_fn
+
+    mesh = meshes["data_model"]
+    grads = _grads(device)
+    ts = TrainStepConfig(sync=mode, compressor=_cfg("tnqsgd"), bucket_mb=_BUCKET_MB,
+                         metrics_compression=metrics, metrics_gnorm=gnorm)
+    n_buckets = len(local_bucket_sizes(grads, ts))
+    sync = make_sync_fn(ts, mesh, grads)
+    key = prng.key(_STEP_SEED)
+    label = model_label(mode, metrics, gnorm)
+    budget = get_codec("tnqsgd").collective_budget(mode, n_buckets) + int(metrics or gnorm)
+    rec = lint_run(lambda: sync(grads, key), label, budget=budget, compressed=mode != "dsgd")
+    rec["n_buckets"] = n_buckets
+    return label, rec
+
+
+def check_metric_counts(traces: dict, modes) -> list[Finding]:
+    """REPRO101 where the model-mesh metrics change the collective count:
+    with the gnorm on, none; with it off, one model-group sum at most."""
+    findings = []
+    for mode in modes:
+        for gnorm in (True, False):
+            off = traces.get(model_label(mode, False, gnorm))
+            on = traces.get(model_label(mode, True, gnorm))
+            if off is None or on is None:
+                continue
+            delta = collections.Counter(on["collectives"])
+            delta.subtract(off["collectives"])
+            delta = {k: v for k, v in delta.items() if v}
+            if delta not in ({},) + (() if gnorm else ({"psum": 1},)):
+                label = model_label(mode, True, gnorm)
+                findings.append(Finding("REPRO101", label, f"[{label}] the compression "
+                                        f"metrics change the collectives by {delta}"))
+    return findings
+
+
 def matrix(methods, modes, quick: bool) -> tuple[list, list]:
     """(sync cases, reference cases) as (method, mode) pairs."""
     syncs = [(m, mode) for mode in modes for m in methods]
@@ -349,7 +407,8 @@ def _rank_main(rank: int, world: int, init: str, out_dir: str, methods, modes, q
         torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
     try:
-        meshes = {"flat": compat.Mesh((N_RANKS,)), "pods": compat.Mesh((2, 2))}
+        meshes = {"flat": compat.Mesh((N_RANKS,)), "pods": compat.Mesh((2, 2)),
+                  "data_model": compat.Mesh(*MODEL_MESH)}
         syncs, refs = matrix(methods, modes, quick)
         traces = {}
         for method, mode in syncs:
@@ -357,6 +416,12 @@ def _rank_main(rank: int, world: int, init: str, out_dir: str, methods, modes, q
             label, rec = sync_case(method, mode, meshes, dev)
             traces[label] = gather_case(label, rec)
             traces[label]["seconds"] = time.perf_counter() - t0
+        for mode in modes:
+            for metrics, gnorm in _METRIC_VARIANTS:
+                t0 = time.perf_counter()
+                label, rec = model_case(mode, metrics, gnorm, meshes, dev)
+                traces[label] = gather_case(label, rec)
+                traces[label]["seconds"] = time.perf_counter() - t0
         if rank == 0:
             for method, mode in refs:
                 label, rec = reference_case(method, mode, dev)
@@ -389,5 +454,6 @@ def run_pass(methods=None, modes=None, *, quick: bool = False, device: str = "cu
                             nprocs=N_RANKS, join=True, start_method="spawn")
         traces = json.loads(pathlib.Path(wd, "sync_lint.json").read_text())
     findings = [Finding(**f) for rec in traces.values() for f in rec.pop("findings")]
+    findings += check_metric_counts(traces, modes)
     return findings, {"traces": len(traces), "per_trace": traces}
 

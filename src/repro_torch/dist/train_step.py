@@ -1,4 +1,4 @@
-"""The data-parallel train step of one rank — the port of
+"""The train step of one rank on a data x model mesh — the port of
 ``repro.dist.train_step``.
 
 :class:`TrainStepConfig` carries the JAX package's fields and checks.
@@ -6,23 +6,37 @@
 JAX package runs the sync inside a fully manual ``shard_map`` over stacked
 ``(n_dp, …)`` arrays; here every rank of a
 :class:`~repro_torch.dist.compat.Mesh` calls it on its own rows, and the
-collectives cross the ``torch.distributed`` groups of the mesh.  The mesh
-is data-parallel: its axes are all dp axes (one model shard), so the JAX
-package's model-axis ``psum`` of the gnorm and the metric sums is the
-identity here, and every rank keeps the whole parameters (the configs'
-``fsdp`` changes only where JAX keeps them, not what it computes).
+collectives cross the ``torch.distributed`` groups of the mesh.  The sync
+crosses the manual (pod and data) axes only.  On a model axis each rank
+holds its model shard's slices of the split leaves and the whole of the
+others, so it buckets, quantizes and error-feeds its own composition; the
+gnorm and the compression-metric sums share one model-group sum, as JAX
+fuses them into one ``psum``.
 
 :func:`make_train_step` is the LM zoo's step on that mesh (or on one
-process with ``mesh=None``): each rank is one client, takes its row of
-the global batch (:func:`_client_batch`), computes its loss and gradients
-with ``torch.autograd`` (or the layer-streamed schedule,
-:func:`_streamed_loss_and_grads`), syncs the float32 gradients through
-:func:`make_sync_fn` under the step key ``fold_in(key(0x5EED), step)`` and
-applies the same optimizer update as every other rank.
+process with ``mesh=None``): each rank is the client of its index over the
+manual axes, takes its row of the global batch (:func:`_client_batch`),
+computes its loss and gradients with ``torch.autograd`` (or the
+layer-streamed schedule, :func:`_streamed_loss_and_grads`) under the
+mesh's ``dist.sharding.axis_rules`` (the model axis's sums inside the
+layers), syncs the float32 gradients through :func:`make_sync_fn` under
+the step key ``fold_in(key(0x5EED), step)`` (the same on every model
+shard; the peer index folded in is the data/pod index) and applies the
+optimizer update to its own slices.
+
+Outputs that JAX declares replicated over the model axis (the mean of a
+leaf the specs leave whole, the telemetry rows, the metrics, the gnorm)
+are computed by each model shard from its own buckets, so they may differ
+in their last bits from shard to shard, as each JAX device keeps its own
+buffer.  Rank (d, m) equals JAX device (d, m) leaf for leaf; a host read
+of JAX's takes device (0, 0)'s, and so do the port's checkpoints and
+replans (model rank 0's).  The gnorm counts a leaf held whole on every
+model shard ``n_model`` times, as JAX's ``psum`` does.
 
 ``local_bucket_sizes``, ``init_ef_state`` and ``init_telemetry_state``
 give this rank's bucket sizes, EF rows and telemetry row of the JAX
-package's state arrays.
+package's state arrays (:func:`ef_rank_rows` and :func:`ef_stacked` carry
+EF state across the two layouts).
 """
 from __future__ import annotations
 
@@ -43,7 +57,7 @@ from repro_torch.models import transformer
 from repro_torch.models.smallnet import tree_leaves, tree_unflatten
 from repro_torch.obs import metrics as obs_metrics
 
-from . import compat
+from . import compat, sharding
 from . import sharded_codec as sc
 
 SYNC_MODES = ("dsgd", "two_phase", "hierarchical", "faithful")
@@ -219,11 +233,15 @@ def _sync_buckets(ts: TrainStepConfig, vals: list, key: torch.Tensor, mesh: comp
     return mean_leaves, resids, new_t, means, cm
 
 
+def _sum_of_squares(flat: list) -> torch.Tensor:
+    return sum(torch.sum(torch.square(m.to(torch.float32))) for m in flat)
+
+
 def global_norm(flat: list) -> torch.Tensor:
     """sqrt of the sum over ``flat`` (the mean buckets, or the mean leaves of
     the per-leaf codec) of each one's sum of squares, in float32, in their
     order: the JAX package's gnorm."""
-    return torch.sqrt(sum(torch.sum(torch.square(m.to(torch.float32))) for m in flat))
+    return torch.sqrt(_sum_of_squares(flat))
 
 
 def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
@@ -249,8 +267,13 @@ def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
       buckets (the mean leaves per leaf), a float32 scalar;
     - ``metrics`` (with ``ts.metrics_compression``): this rank's
       :class:`~repro_torch.obs.metrics.CompressionMetrics`, (B,) leaves.
+
+    On a model axis the leaves are this rank's model-local slices, the
+    collectives cross the manual axes, and the gnorm's square and the
+    metric sums are summed over the model group in one collective.
     """
-    dp = mesh.axis_names
+    dp = mesh.dp_axes
+    n_model = mesh.model_size
     shapes = [tuple(x.shape) for x in grads_like]
 
     def sync(grads, key, *extras):
@@ -282,10 +305,25 @@ def make_sync_fn(ts: TrainStepConfig, mesh: compat.Mesh, grads_like):
             result.append(tuple(resid))
         if ts.adaptive is not None:
             result.append(new_t)
-        if ts.metrics_gnorm:
-            result.append(global_norm(gsrc))
+        gsq = _sum_of_squares(gsrc) if ts.metrics_gnorm else None
         if cm is not None:
-            result.append(obs_metrics.finalize(*cm, 1))
+            # one model-group sum for the metric sums and the gnorm's square
+            sums, static = cm
+            if n_model > 1:
+                vec = sums.reshape(-1)
+                if gsq is not None:
+                    vec = torch.cat([vec, gsq[None]])
+                vec = compat.psum(vec, mesh, "model")
+                if gsq is not None:
+                    gsq, vec = vec[-1], vec[:-1]
+                sums = vec.reshape(sums.shape)
+            cm = obs_metrics.finalize(sums, static, n_model)
+        elif gsq is not None and n_model > 1:
+            gsq = compat.psum(gsq, mesh, "model")
+        if gsq is not None:
+            result.append(torch.sqrt(gsq))
+        if cm is not None:
+            result.append(cm)
         return tuple(result) if len(result) > 1 else result[0]
 
     return sync
@@ -297,31 +335,88 @@ def _leaf_list(params_like) -> list:
     return tree_leaves(params_like) if isinstance(params_like, dict) else list(params_like)
 
 
-def local_bucket_sizes(params_like, ts: TrainStepConfig) -> tuple[int, ...]:
-    """Element counts of the codec's buckets as one rank sees them: the
-    data-parallel mesh shards no leaf, so ``plan_buckets`` of the sizes of
-    ``params_like`` (the parameter tree or its leaves)."""
-    return tuple(compressors.plan_buckets([x.numel() for x in _leaf_list(params_like)],
+def _local_sizes(params_like, mesh, pspecs) -> list:
+    """Each leaf's element count on one rank: ``params_like`` as given (this
+    rank's slices), or, with ``pspecs``, the full leaves divided by the
+    model shards their specs split them over."""
+    leaves = _leaf_list(params_like)
+    if pspecs is None:
+        return [x.numel() for x in leaves]
+    specs = sharding.tree_leaves(pspecs)
+    sizes = []
+    for x, spec in zip(leaves, specs, strict=True):
+        div = math.prod(math.prod(mesh.shape[a] for a in axes)
+                        for _, axes in sharding.model_split(spec, mesh))
+        sizes.append(x.numel() // div)
+    return sizes
+
+
+def local_bucket_sizes(params_like, ts: TrainStepConfig, mesh=None,
+                       pspecs=None) -> tuple[int, ...]:
+    """Element counts of the codec's buckets as one rank sees them:
+    ``plan_buckets`` of its leaves' local sizes (see :func:`_local_sizes`:
+    this rank's params or tensors of their shapes, or the full ones with
+    the ``mesh`` and its ``pspecs``, as JAX's takes them)."""
+    return tuple(compressors.plan_buckets(_local_sizes(params_like, mesh, pspecs),
                                           ts.bucket_elements).sizes)
 
 
-def init_ef_state(params_like, ts: TrainStepConfig) -> tuple:
+def init_ef_state(params_like, ts: TrainStepConfig, mesh=None, pspecs=None) -> tuple:
     """This rank's zero bucket-resident EF rows: one fp32 row per bucket of
     ``m + state_extra`` elements (the powersgd Q factor after the residual),
-    with the fp16 tier applied, on the device of the parameters."""
-    sizes = local_bucket_sizes(params_like, ts)
+    with the fp16 tier applied, on the device of the parameters.  JAX's
+    state is ``(n_dp, n_model · row)`` a bucket: rank (d, m) holds row d's
+    segment m (:func:`ef_rank_rows`)."""
+    sizes = local_bucket_sizes(params_like, ts, mesh, pspecs)
     plan = size_adaptive_plan(ts.compressor, ts.bits_plan, sizes, ts.fp16_threshold)
     device = _leaf_list(params_like)[0].device
     return tuple(torch.zeros(s, dtype=torch.float32, device=device)
                  for s in bucket_state_sizes(ts.compressor, sizes, plan))
 
 
-def init_telemetry_state(params_like, ts: TrainStepConfig):
+def ef_rank_rows(ef_stacked, client: int, model_index: int, n_model: int) -> tuple:
+    """Rank (client, model_index)'s EF rows out of the JAX package's
+    stacked layout (one ``(n_dp, n_model · row)`` array a bucket)."""
+    return tuple(e[client].reshape(n_model, -1)[model_index].clone() for e in ef_stacked)
+
+
+def ef_stacked(rows: list, n_dp: int, n_model: int) -> tuple:
+    """The JAX package's stacked EF layout from every rank's rows
+    (``rows[d · n_model + m]``: rank (d, m)'s, as :func:`init_ef_state`
+    gives them)."""
+    return tuple(torch.stack([torch.cat([rows[d * n_model + m][b] for m in range(n_model)])
+                              for d in range(n_dp)])
+                 for b in range(len(rows[0])))
+
+
+def init_telemetry_state(params_like, ts: TrainStepConfig, mesh=None, pspecs=None):
     """This rank's zero telemetry row over the bucket plan (the JAX
     package's stacked state has one such row per client), on the device of
     the parameters."""
-    n_buckets = len(local_bucket_sizes(params_like, ts))
+    n_buckets = len(local_bucket_sizes(params_like, ts, mesh, pspecs))
     return adaptive_telemetry.init_telemetry(n_buckets, device=_leaf_list(params_like)[0].device)
+
+
+def _opt_specs(opt_state_like, params_like, pspecs):
+    """Optimizer-state specs, as the JAX package's: each state leaf is
+    shape-matched against the param leaves in cyclic order (momentum
+    mirrors them once, AdamW twice); a match takes the param's spec,
+    anything else (a scalar) ``P()``; a partial cycle replicates the whole
+    state."""
+    p_shapes = [tuple(x.shape) for x in _leaf_list(params_like)]
+    spec_leaves = sharding.tree_leaves(pspecs)
+    leaves = sharding.tree_leaves(opt_state_like)
+    n = len(p_shapes)
+    out, cursor = [], 0
+    for leaf in leaves:
+        if n and hasattr(leaf, "shape") and tuple(leaf.shape) == p_shapes[cursor % n]:
+            out.append(spec_leaves[cursor % n])
+            cursor += 1
+        else:
+            out.append(sharding.P())
+    if n and cursor % n:
+        return sharding.tree_unflatten(opt_state_like, [sharding.P() for _ in leaves])
+    return sharding.tree_unflatten(opt_state_like, out)
 
 
 # -- the loss and its gradients ----------------------------------------------
@@ -453,12 +548,15 @@ def make_train_step(cfg, mesh: compat.Mesh | None, opt, ts: TrainStepConfig, bat
                     params_like=None):
     """This rank's train step for one configuration.
 
-    ``mesh``: a data-parallel :class:`~repro_torch.dist.compat.Mesh` (this
-    process is the client of its rank's index), or None for one process
-    and no sync.  ``batch``: a global batch of the shapes the step will be
-    given (its batch must split evenly over the clients).  ``params_like``:
-    the params tree or tensors of its shapes (default: the params of the
-    first call).
+    ``mesh``: a :class:`~repro_torch.dist.compat.Mesh` (this process is the
+    client of its index over the manual axes and holds its model shard's
+    slices of the params, ``dist.sharding.shard_tree`` by the step's
+    ``pspecs``), or None for one process and no sync.  ``batch``: a global
+    batch of the shapes the step will be given (its batch must split evenly
+    over the clients).  ``params_like``: this rank's params tree or tensors
+    of its shapes (default: the params of the first call).  The step's
+    ``pspecs`` attribute is the params' PartitionSpec tree (JAX's second
+    result; None without a mesh).
 
     ``step_fn(params, opt_state, batch, step) -> (params, opt_state,
     metrics)``; with ``ts.error_feedback`` the EF rows
@@ -474,13 +572,17 @@ def make_train_step(cfg, mesh: compat.Mesh | None, opt, ts: TrainStepConfig, bat
     ``live_count`` with ``ts.elastic``.
     """
     b = batch.tokens.shape[0]
+    pspecs, rules = None, {}
     if mesh is not None:
-        dp = mesh.axis_names
+        dp = mesh.dp_axes
         n_dp = math.prod(mesh.dp_sizes)
         if b % n_dp:
             raise ValueError(f"global batch {b} must be divisible by the {n_dp} data shards of "
-                             f"mesh {dict(zip(dp, mesh.dp_sizes))}")
+                             f"mesh {mesh.shape}")
         client = compat.flat_axis_index(mesh, dp)
+        sharding.check_model_axis(cfg, mesh.model_size)
+        pspecs = sharding.lm_pspecs(cfg, mesh)
+        rules = sharding.activation_rules(mesh, manual_data=True)
     else:
         dp, n_dp, client = (), 1, 0
     if ts.error_feedback and mesh is None:
@@ -499,8 +601,9 @@ def make_train_step(cfg, mesh: compat.Mesh | None, opt, ts: TrainStepConfig, bat
 
     def _step(params, opt_state, ef_state, tstate, batch_g, step):
         split_batch, axes = _client_batch(batch_g, n_dp)
-        loss, grads = _loss_and_grads(cfg, params, client_row(split_batch, axes, client),
-                                      streamed)
+        with sharding.axis_rules(mesh, rules):
+            loss, grads = _loss_and_grads(cfg, params, client_row(split_batch, axes, client),
+                                          streamed)
         g_leaves = [g.to(torch.float32) for g in tree_leaves(grads)]
         key = prng.fold_in(prng.key(_KEY_SEED), step)
         new_ef, new_t, gnorm, cmetrics, live = ef_state, tstate, None, None, None
@@ -557,4 +660,5 @@ def make_train_step(cfg, mesh: compat.Mesh | None, opt, ts: TrainStepConfig, bat
         def step_fn(params, opt_state, batch_g, step):
             p, o, _, _, m = _step(params, opt_state, None, None, batch_g, step)
             return p, o, m
+    step_fn.pspecs = pspecs
     return step_fn

@@ -17,6 +17,14 @@ devices and reads XLA's analyses.  Here the step runs eagerly on PyTorch's
   and the gradient norm;
 - **prefill** and **decode**: through ``dist.serve_step.make_serve_fns``.
 
+On a ``DxM`` mesh with M > 1 the step runs one rank's model shard: its
+slices of the params (``dist.sharding.shard_tree`` by ``lm_pspecs``, so the
+bytes a device holds come from the specs), the layers' model-group sums
+inside ``dist.sharding.axis_rules`` over an ``AbstractMesh`` (counted as
+all-reduces, no communication on meta), and the sync over its model-local
+buckets.  The parameter counts and model FLOPs stay the whole model's,
+divided over the chips.
+
 A train record also splits its terms into ``parts``: ``model`` (the
 forward, backward and update) and ``sync`` (with its wire's bits an
 element, ``compressors.wire_bits_per_element``, for a quantizer).  Records keep the JAX
@@ -37,6 +45,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -52,8 +61,9 @@ from repro_torch.configs import (INPUT_SHAPES, InputShape, get_config, get_shape
                                  reduced, variant_for_shape)
 from repro_torch.core import codecs, compressors
 from repro_torch.core.compressors import CompressorConfig
-from repro_torch.dist import collectives
+from repro_torch.dist import collectives, sharding
 from repro_torch.dist import train_step as tsmod
+from repro_torch.dist.compat import AbstractMesh
 from repro_torch.dist.serve_step import make_serve_fns
 from repro_torch.models.smallnet import tree_leaves, tree_unflatten
 from repro_torch.optim.optimizers import get_optimizer
@@ -147,7 +157,7 @@ def _meta_run(label: str, fn):
                              f"{type(e).__name__}: {str(e).splitlines()[0]}") from e
 
 
-def _train_cost(cfg, params, batch, dp, ts, sizes, optimizer: str):
+def _train_cost(cfg, params, batch, dp, ts, sizes, optimizer: str, mesh=None):
     """(op cost of the forward, backward and update, the sync's cost over
     the buckets ``sizes``, the peak per-device bytes, the bytes alive at
     the start)."""
@@ -156,7 +166,9 @@ def _train_cost(cfg, params, batch, dp, ts, sizes, optimizer: str):
     ef = tsmod.init_ef_state(params, ts) if ts.error_feedback else ()
     with OpCost(live=(params, opt_state, ef, batch)) as oc:
         base = oc.cost.peak_bytes
-        _, grads = tsmod._loss_and_grads(cfg, params, batch, ts.streamed)
+        with (sharding.axis_rules(mesh, sharding.activation_rules(mesh, manual_data=True))
+              if mesh is not None else contextlib.nullcontext()):
+            _, grads = tsmod._loss_and_grads(cfg, params, batch, ts.streamed)
         g32 = [g.to(torch.float32) for g in tree_leaves(grads)]
         del grads
         opt.update(params, tree_unflatten(params, g32), opt_state, 0)
@@ -176,6 +188,9 @@ def run_one(arch: str, shape: InputShape, *, mesh_spec: str = "1", sync: str = "
     cfg = variant_for_shape(base_cfg, shape)
     names, dims = mesh_axes(mesh_spec)
     _, dp = data_parallel_axes(mesh_spec)
+    n_model = dict(zip(names, dims)).get("model", 1)
+    sharding.check_model_axis(cfg, n_model)
+    mesh = AbstractMesh(dims, names) if n_model > 1 else None
     n_chips = math.prod(dims)
     n_dp = math.prod(dp)
     if shape.global_batch % n_dp:
@@ -186,6 +201,8 @@ def run_one(arch: str, shape: InputShape, *, mesh_spec: str = "1", sync: str = "
     params = abstract_init(cfg)
     n_params = count_params(params)
     n_active = count_active_params(cfg, params)
+    if mesh is not None:   # this rank's model shard
+        params = sharding.shard_tree(params, sharding.lm_pspecs(cfg, mesh), mesh)
     label = f"{arch} x {shape.name}"
     parts = None
     ins = input_specs(cfg, dataclasses.replace(shape, global_batch=b_local))
@@ -197,14 +214,15 @@ def run_one(arch: str, shape: InputShape, *, mesh_spec: str = "1", sync: str = "
                                    compressor=CompressorConfig(method=method, bits=bits))
         sizes = list(tsmod.local_bucket_sizes(params, ts))
         cost, scost, peak, base = _meta_run(
-            label, lambda: _train_cost(cfg, params, ins["batch"], dp, ts, sizes, optimizer))
+            label, lambda: _train_cost(cfg, params, ins["batch"], dp, ts, sizes, optimizer, mesh))
         parts = {"model": _terms(cost), "sync": _terms(scost)}
         if method in compressors.METHODS and method != "dsgd" and sync != "dsgd":
             parts["sync"]["wire_bits_per_element"] = compressors.wire_bits_per_element(
                 ts.compressor, sizes)
         cost.add(scost)
     else:
-        prefill_fn, decode_fn = make_serve_fns(cfg, shape.seq_len)
+        prefill_fn, decode_fn = make_serve_fns(cfg, shape.seq_len, mesh)[:2] if mesh \
+            else make_serve_fns(cfg, shape.seq_len)
         live = (params, ins)
         if shape.kind == "prefill":
             def call():
@@ -272,7 +290,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default=None, choices=list_archs())
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
-    ap.add_argument("--mesh", default="1", help="N (data) or DxM / PxDxM with M = 1")
+    ap.add_argument("--mesh", default="1",
+                    help="N (data), DxM (data x model) or PxDxM (pod x data x model)")
     ap.add_argument("--sync", default="faithful", choices=tsmod.SYNC_MODES)
     ap.add_argument("--method", default="tnqsgd", choices=codecs.known_methods())
     ap.add_argument("--bits", type=int, default=3)

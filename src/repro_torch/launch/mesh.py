@@ -3,10 +3,13 @@
 
 :func:`mesh_axes` is the one parser of the launcher's and the dry run's
 ``--mesh`` specs (``N`` data; ``DxM`` data x model; ``PxDxM`` pod x data x
-model).  :func:`data_parallel_axes` keeps the data-parallel axes of a spec:
-the port's mesh has no model axis until its sharding rules land, so a model
-axis above 1 raises with :data:`SHARDING_ITEM`'s words.  There are no TPU
-pods: the JAX package's ``make_production_mesh`` has no counterpart.
+model), and returns the full axes; :func:`data_parallel_axes` keeps the
+data-parallel ones of a spec.  What a model axis above 1 does not cover yet
+(MoE, by ROADMAP fact F17; the VLM, audio, SSM and hybrid families; KV
+heads that do not divide the axis) stops in
+``dist.sharding.check_model_axis`` with :data:`SHARDING_ITEM`'s words.
+There are no TPU pods: the JAX package's ``make_production_mesh`` has no
+counterpart.
 
 The constants are one NVIDIA H100 SXM's, from NVIDIA's data sheet at dense
 rates (no sparsity).  They assume the card's full 700 W power limit; a card
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-SHARDING_ITEM = "ROADMAP Queue 1, item 4.2 (dist/sharding.py: tensor and expert parallelism)"
+from repro_torch.dist.sharding import SHARDING_ITEM, check_model_axis  # noqa: F401
 
 #: tensor-core peaks, FLOP/s
 PEAK_FLOPS_BF16 = 989e12
@@ -54,10 +57,8 @@ def mesh_axes(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
 
 
 def data_parallel_axes(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
-    """The data-parallel axes of ``spec`` (its model axis of 1 dropped) and
-    their sizes; a model axis above 1 raises."""
+    """The data-parallel axes of ``spec`` (its model axis dropped) and their
+    sizes."""
     names, dims = mesh_axes(spec)
-    if "model" in names and dims[-1] != 1:
-        raise ValueError(f"--mesh {spec}: a model axis of {dims[-1]} waits for {SHARDING_ITEM}")
     keep = [i for i, n in enumerate(names) if n != "model"]
     return tuple(names[i] for i in keep), tuple(dims[i] for i in keep)

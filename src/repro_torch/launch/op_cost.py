@@ -125,6 +125,7 @@ class OpCost(TorchDispatchMode):
         self._live: dict[int, int] = {}
         self._now = 0
         self._patched: list = []
+        self._depth = 0
         for t in tree_flatten(live)[0]:
             if isinstance(t, torch.Tensor):
                 self._track(t)
@@ -150,6 +151,12 @@ class OpCost(TorchDispatchMode):
     def __enter__(self):
         from repro_torch.dist import compat
 
+        # re-entered around a composite op's decomposition: the collectives
+        # are spied on already (wrapping them again would nest the spies)
+        self._depth += 1
+        if self._depth > 1:
+            return super().__enter__()
+
         def spy(fn, kind):
             def counted(x, mesh, axis_name):
                 out = fn(x, mesh, axis_name)
@@ -161,16 +168,18 @@ class OpCost(TorchDispatchMode):
             return counted
 
         for name, kind in (("all_gather_stacked", "all-gather"), ("psum", "all-reduce"),
-                           ("all_to_all_rows", "all-to-all")):
+                           ("pmax", "all-reduce"), ("all_to_all_rows", "all-to-all")):
             fn = getattr(compat, name)
             self._patched.append((compat, name, fn))
             setattr(compat, name, spy(fn, kind))
         return super().__enter__()
 
     def __exit__(self, *exc):
-        for mod, name, fn in self._patched:
-            setattr(mod, name, fn)
-        self._patched.clear()
+        self._depth -= 1
+        if self._depth == 0:
+            for mod, name, fn in self._patched:
+                setattr(mod, name, fn)
+            self._patched.clear()
         return super().__exit__(*exc)
 
     # -- ops -----------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core import prng
 from repro_torch.data.synthetic import lm_batch
+from repro_torch.dist import sharding
 from repro_torch.models import transformer
 from repro_torch.models.smallnet import tree_leaves
 
@@ -20,8 +21,8 @@ META = "meta"
 
 def abstract_init(cfg: ArchConfig) -> dict:
     """The params tree of ``init_lm`` on the meta device.  JAX's version
-    also returns the logical-axes tree, which the port's ``init_lm`` does
-    not build until its sharding rules land (ROADMAP Queue 1, item 4.2)."""
+    also returns the logical-axes tree: the port's is
+    ``transformer.logical_axes(cfg)``."""
     # repro: allow REPRO204 (a meta draw has no values: the key shapes nothing)
     return transformer.init_lm(prng.key(0), cfg, device=META)
 
@@ -53,40 +54,20 @@ def count_params(params_like) -> int:
     return sum(x.numel() for x in tree_leaves(params_like))
 
 
-def _expert_leaf(cfg: ArchConfig, path: tuple, x) -> bool:
-    """A tensor with an experts' axis: an MoE FFN's ``router`` (d, E) and
-    its ``wi``, ``wg`` and ``wo`` (E, ·, ·) (``models.moe.moe_init``), each
-    stacked on the unit axis.  These are the leaves whose logical axes name
-    ``"expert"`` in the JAX package (its router's are ("embed",
-    "expert")); attention and SSM weights have none."""
-    if cfg.moe is None or len(path) < 2 or path[-2] != "ffn":
-        return False
-    e = cfg.moe.num_experts
-    if path[-1] == "router":
-        return x.shape[-1] == e
-    return path[-1] in ("wi", "wg", "wo") and x.dim() == 4 and x.shape[1] == e
-
-
-def _walk(tree: dict, path: tuple = ()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _walk(v, path + (k,))
-        else:
-            yield path + (k,), v
-
-
-def count_active_params(cfg: ArchConfig, params_like) -> int:
+def count_active_params(cfg: ArchConfig, params_like, logical=None) -> int:
     """Active params per token: expert tensors count top_k/E of their size.
 
-    The JAX package finds the expert tensors by their logical axes; the
-    port's params carry none (ROADMAP Queue 1, item 4.2), so it finds them
-    by the rule of :func:`_expert_leaf`: an MoE subtree's router, ``wi``,
-    ``wg`` and ``wo``.  The result is JAX's count (held for all
-    ten archs by ``tests/test_torch_launch.py``)."""
+    The expert tensors are the leaves whose logical axes
+    (``transformer.logical_axes(cfg)``, the default) name ``"expert"``, as
+    JAX finds them: an MoE FFN's router and its ``wi``, ``wg`` and ``wo``.
+    The result is JAX's count (held for all ten archs by
+    ``tests/test_torch_launch.py``)."""
+    if logical is None:
+        logical = transformer.logical_axes(cfg)
     total = 0
-    for path, x in _walk(params_like):
+    for x, la in zip(tree_leaves(params_like), sharding.tree_leaves(logical), strict=True):
         n = x.numel()
-        if _expert_leaf(cfg, path, x):
+        if cfg.moe is not None and "expert" in la:
             n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
         total += n
     return int(total)

@@ -1,8 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]`` —
 the port of ``repro.launch.train``, with its flags and log lines.
 
-Every rank of the default process group is one data-parallel client
-(``dist.train_step.make_train_step`` over a ``dist.compat.Mesh``):
+Every rank of the default process group is one rank of a
+``dist.compat.Mesh`` (``dist.train_step.make_train_step`` over it): the
+client of its index over the data (and pod) axes, holding its model
+shard's slices of the params:
 
 - under ``torchrun`` the group comes from its environment (``env://``);
 - ``--fake-devices N`` (N > 1) spawns N processes on a gloo group over
@@ -14,10 +16,18 @@ Every rank of the default process group is one data-parallel client
 The groups are gloo: the mesh's collectives run on CPU and CUDA tensors
 alike, and several ranks may share one card.  ``--mesh`` reads the JAX
 launcher's specs over the ranks through ``launch.mesh.mesh_axes`` (``N``
-data; ``DxM`` data x model; ``PxDxM`` pod x data x model); the model axis
-must be 1 until the port's sharding rules land.  ``--device`` picks ``cuda`` (the default; a rank takes card
-``LOCAL_RANK`` modulo the cards) or ``cpu``.  Rank 0 prints and
-checkpoints.  ``--obs-dir`` turns on every rank's per-bucket compression
+data; ``DxM`` data x model; ``PxDxM`` pod x data x model).  A model axis
+above 1 trains the dense family tensor-parallel (``dist.sharding``); the
+rest of the zoo on one stops with the ROADMAP item it waits for.  Each
+rank draws the full ``init_lm(key(0))`` and keeps its slices
+(``dist.sharding.shard_tree``).  The ``fsdp`` entries of the specs name
+the data axis as JAX's do, but every data rank keeps its slices whole
+until the ``fsdp``/``streamed`` item of the ROADMAP: the numbers are the
+same.  ``--device`` picks ``cuda`` (the default; a rank takes card
+``LOCAL_RANK`` modulo the cards) or ``cpu``.  Rank 0 prints and writes
+the checkpoints, which hold the full params and optimizer state gathered
+over the model axis, so a checkpoint restores on any mesh, as the JAX
+package's do.  ``--obs-dir`` turns on every rank's per-bucket compression
 metrics (their gather is a collective) and gives rank 0 alone the event
 sink (``<obs-dir>/events.jsonl``), a span recorder synchronized on its
 device and a drift monitor, in the JAX launcher's order of events.
@@ -43,10 +53,10 @@ from repro_torch.core import prng
 from repro_torch.core.codecs import known_methods
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.data.synthetic import lm_batch
-from repro_torch.dist import compat
-from repro_torch.dist.train_step import (SYNC_MODES, TrainStepConfig, init_ef_state,
+from repro_torch.dist import compat, sharding
+from repro_torch.dist.train_step import (SYNC_MODES, TrainStepConfig, _opt_specs, init_ef_state,
                                          make_train_step)
-from repro_torch.launch.mesh import data_parallel_axes, mesh_axes
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models.transformer import init_lm
 from repro_torch.obs import SCHEMA_VERSION, DriftMonitor, JsonlSink, SpanRecorder, metrics_event
 from repro_torch.optim.optimizers import get_optimizer
@@ -57,7 +67,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduced", action="store_true", help="reduced config (CPU-trainable)")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 4, or 4x1 (data x model); default all ranks data-parallel")
+                    help="e.g. 4, 4x2 (data x model) or 2x2x2 (pod x data x model); default "
+                         "all ranks data-parallel")
     ap.add_argument("--fake-devices", type=int, default=0,
                     help="spawn this many gloo ranks in place of devices")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -107,7 +118,10 @@ def parser() -> argparse.ArgumentParser:
 def _check_args(ap: argparse.ArgumentParser, args) -> None:
     if args.mesh:
         try:
-            data_parallel_axes(args.mesh)
+            names, dims = mesh_axes(args.mesh)
+            cfg = get_config(args.arch)
+            sharding.check_model_axis(make_reduced(cfg) if args.reduced else cfg,
+                                      dict(zip(names, dims)).get("model", 1))
         except ValueError as e:
             ap.error(str(e))
     if (args.chaos_trace or args.dropout_rate > 0.0) and args.bucket_mb <= 0:
@@ -117,17 +131,17 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
 
 
 def build_mesh(spec: str) -> tuple[compat.Mesh, dict]:
-    """The data-parallel :class:`~repro_torch.dist.compat.Mesh` of ``spec``
-    (its model axis of 1 dropped: ``_check_args`` refuses a larger one)
-    over the default process group, and the spec's axes as a dict (for the
-    log line)."""
+    """The :class:`~repro_torch.dist.compat.Mesh` of ``spec`` over the
+    default process group, and its axes as a dict (for the log line)."""
     names, dims = mesh_axes(spec)
-    dp_names, dp = data_parallel_axes(spec)
     world = dist.get_world_size()
-    if math.prod(dp) != world:
-        raise ValueError(f"mesh {spec!r} has {math.prod(dp)} data-parallel ranks, the process "
-                         f"group {world}")
-    return compat.Mesh(dp, dp_names), dict(zip(names, dims))
+    if math.prod(dims) != world:
+        raise ValueError(f"mesh {spec!r} has {math.prod(dims)} ranks, the process group {world}")
+    return compat.Mesh(dims, names), dict(zip(names, dims))
+
+
+def _to(tree, device):
+    return sharding.tree_map(lambda t: t.to(device), tree)
 
 
 def _train(args) -> dict:
@@ -150,6 +164,10 @@ def _train(args) -> dict:
 
     # repro: allow REPRO204 (CLI entry point: the reproducible demo seed, JAX's)
     params = init_lm(prng.key(0), cfg, device=device)
+    split = mesh.model_size > 1
+    pspecs = sharding.lm_pspecs(cfg, mesh) if split else None
+    if split:
+        params = sharding.shard_tree(params, pspecs, mesh)
     opt = (get_optimizer(args.optimizer, lr=args.lr) if args.optimizer == "momentum_sgd"
            else get_optimizer(args.optimizer))
     acfg = None
@@ -195,9 +213,19 @@ def _train(args) -> dict:
     else:
         step_fn = make_train_step(cfg, mesh, opt, ts, batch0, params_like=params)
 
+    o_specs = None
+    if split:
+        # repro: allow REPRO204 (a meta draw has no values: the key shapes nothing)
+        full_like = init_lm(prng.key(0), cfg, device="meta")
+        o_specs = _opt_specs(opt.init(full_like), full_like, pspecs)
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        (params, opt_state), start = load_checkpoint(args.ckpt_dir, (params, opt_state))
+        if split:   # the full tree on the host, then this rank's slices
+            (fp, fo), start = load_checkpoint(args.ckpt_dir, (full_like, opt.init(full_like)))
+            params = _to(sharding.shard_tree(fp, pspecs, mesh), device)
+            opt_state = _to(sharding.shard_tree(fo, o_specs, mesh), device)
+        else:
+            (params, opt_state), start = load_checkpoint(args.ckpt_dir, (params, opt_state))
         say(f"resumed from step {start}")
     ef_state = init_ef_state(params, ts) if args.ef else None
     tstate = stepper.init_telemetry() if stepper is not None else None
@@ -251,8 +279,13 @@ def _train(args) -> dict:
             if args.log_every and i % args.log_every == 0:
                 gn = f" gnorm {rec['gnorm']:.3f}" if "gnorm" in rec else ""
                 say(f"step {i:5d} loss {rec['loss']:.4f}{gn}{lvs}", flush=True)
-            if args.ckpt_every and args.ckpt_dir and (i + 1) % args.ckpt_every == 0 and rank == 0:
-                save_checkpoint(args.ckpt_dir, i + 1, (params, opt_state))
+            if args.ckpt_every and args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+                tree = (params, opt_state)
+                if split:   # every rank joins the gathers; rank 0 writes
+                    tree = (sharding.gather_tree(params, pspecs, mesh),
+                            sharding.gather_tree(opt_state, o_specs, mesh))
+                if rank == 0:
+                    save_checkpoint(args.ckpt_dir, i + 1, tree)
                 say(f"checkpointed step {i+1}")
     finally:
         if obs_sink is not None:

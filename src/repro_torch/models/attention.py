@@ -11,6 +11,11 @@ Sliding-window decode uses a rolling KV cache of window size: position
 enters keys via RoPE *before* caching, so attention is permutation-invariant
 over cache slots and no unrotation is needed.
 
+On a model axis the weights hold this rank's heads: ``wq``, ``wk`` and
+``wv`` by columns (whole heads, a rank's KV heads serving its own query
+heads), ``wo`` by rows, its partial output summed over the model group
+(``dist.sharding``); a rank's KV cache holds its own KV heads.
+
 Caches are written in place: :func:`attention_decode` stores the new key
 and value into the cache's tensors and returns them with the new length.
 A cache's ``length`` is a host int, so the decode loop never waits on the
@@ -33,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
+from repro_torch.dist import sharding
 
 from .layers import dense_init, dtype_of
 from .rope import apply_positional
@@ -49,6 +55,13 @@ def attn_init(key: torch.Tensor, cfg, d: int, device) -> dict:
             "wk": dense_init(ks[1], (d, hkv * dh), d, dtype, device),
             "wv": dense_init(ks[2], (d, hkv * dh), d, dtype, device),
             "wo": dense_init(ks[3], (hq * dh, d), hq * dh, dtype, device)}
+
+
+def attn_axes() -> dict:
+    """The logical axes of :func:`attn_init`'s leaves (JAX's ``attn_init``'s
+    second result, self- and cross-attention alike)."""
+    return {"wq": ("embed_fsdp", "heads"), "wk": ("embed_fsdp", "heads"),
+            "wv": ("embed_fsdp", "heads"), "wo": ("heads", "embed_fsdp")}
 
 
 def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
@@ -144,27 +157,47 @@ class KVCache(NamedTuple):
     length: int         # valid positions (== S_cache when full), equal across units
 
 
+def _local_heads(cfg, p: dict) -> tuple[int, int, bool]:
+    """(query heads, KV heads) this rank's weights hold, and whether they are
+    split over the model axis: ``wq``/``wk``/``wv`` by columns (whole
+    heads; each rank's KV heads serve its own query heads), ``wo`` by
+    rows."""
+    dh = cfg.resolved_head_dim
+    hq, hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+    return hq, hkv, hq != cfg.num_heads
+
+
 def _qkv(cfg, p: dict, x: torch.Tensor):
     dh = cfg.resolved_head_dim
-    return (_split_heads(x @ p["wq"], cfg.num_heads, dh),
-            _split_heads(x @ p["wk"], cfg.num_kv_heads, dh),
-            _split_heads(x @ p["wv"], cfg.num_kv_heads, dh))
+    hq, hkv, _ = _local_heads(cfg, p)
+    return (_split_heads(x @ p["wq"], hq, dh),
+            _split_heads(x @ p["wk"], hkv, dh),
+            _split_heads(x @ p["wv"], hkv, dh))
 
 
-def _merge_heads(cfg, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return y.reshape(tuple(x.shape[:-1]) + (cfg.num_heads * cfg.resolved_head_dim,))
+def _merge_heads(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return y.reshape(tuple(x.shape[:-1]) + (y.shape[-2] * y.shape[-1],))
+
+
+def _out(y: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
+    """The output projection; a row-split ``wo``'s partial sums added over
+    the model group."""
+    out = y @ wo
+    return sharding.reduce_from_model(out) if split else out
 
 
 def attention_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                       causal: bool = True, window: int | None = None) -> torch.Tensor:
     """Full-sequence self-attention: the train path's (causal, with the
     config's sliding window) and the encoder's (bidirectional)."""
+    hq, _, split = _local_heads(cfg, p)
+    if split:
+        x = sharding.copy_to_model(x)
     q, k, v = _qkv(cfg, p, x)
     q = apply_positional(cfg, q, positions)
     k = apply_positional(cfg, k, positions)
-    out = flash_attention(q, _repeat_kv(k, cfg.num_heads), _repeat_kv(v, cfg.num_heads),
-                          causal=causal, window=window)
-    return _merge_heads(cfg, out, x) @ p["wo"]
+    out = flash_attention(q, _repeat_kv(k, hq), _repeat_kv(v, hq), causal=causal, window=window)
+    return _out(_merge_heads(out, x), p["wo"], split)
 
 
 def attention_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
@@ -174,12 +207,12 @@ def attention_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     ``capacity`` > seq_len leaves room for later decode steps (decode
     appends at ``cache.length``); a window keeps the last ``window``
     positions only."""
+    hq, _, split = _local_heads(cfg, p)
     q, k, v = _qkv(cfg, p, x)
     q = apply_positional(cfg, q, positions)
     k = apply_positional(cfg, k, positions)
-    y = flash_attention(q, _repeat_kv(k, cfg.num_heads), _repeat_kv(v, cfg.num_heads),
-                        causal=True, window=window)
-    y = _merge_heads(cfg, y, x) @ p["wo"]
+    y = flash_attention(q, _repeat_kv(k, hq), _repeat_kv(v, hq), causal=True, window=window)
+    y = _out(_merge_heads(y, x), p["wo"], split)
     if window is not None:
         k, v = k[:, -window:], v[:, -window:]
     length = k.shape[1]
@@ -201,6 +234,7 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, position: in
     clamped to the last slot as JAX's ``dynamic_update_slice`` clamps."""
     dh = cfg.resolved_head_dim
     b = x.shape[0]
+    hq, hkv, split = _local_heads(cfg, p)
     pos2 = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _qkv(cfg, p, x)
     q = apply_positional(cfg, q, pos2)
@@ -215,15 +249,15 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, position: in
     # q is viewed as (B, 1, Hkv, rep, Dh).  JAX contracts the raw cache with
     # float32 accumulation; the products of its (bfloat16) values are exact
     # in float32, so upcasting the valid slots first gives the same sums.
-    rep = cfg.num_heads // max(cfg.num_kv_heads, 1)
-    qg = q.reshape(b, 1, cfg.num_kv_heads, rep, dh).float()
+    rep = hq // max(hkv, 1)
+    qg = q.reshape(b, 1, hkv, rep, dh).float()
     kv_k, kv_v = cache.k[:, :new_len].float(), cache.v[:, :new_len]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
     s = torch.einsum("bqhrd,bkhd->bqhrk", qg, kv_k) * scale
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhrk,bkhd->bqhrd", w.to(kv_v.dtype).float(), kv_v.float())
-    out = out.to(x.dtype).reshape(b, 1, cfg.num_heads * dh)
-    return out @ p["wo"], KVCache(k=cache.k, v=cache.v, length=new_len)
+    out = out.to(x.dtype).reshape(b, 1, hq * dh)
+    return _out(out, p["wo"], split), KVCache(k=cache.k, v=cache.v, length=new_len)
 
 
 def cross_attention_forward(cfg, p: dict, x: torch.Tensor, enc_kv) -> torch.Tensor:
@@ -232,7 +266,7 @@ def cross_attention_forward(cfg, p: dict, x: torch.Tensor, enc_kv) -> torch.Tens
     k, v = enc_kv
     out = flash_attention(q, _repeat_kv(k, cfg.num_heads), _repeat_kv(v, cfg.num_heads),
                           causal=False, q_chunk=1024, kv_chunk=max(64, min(1024, k.shape[1])))
-    return _merge_heads(cfg, out, x) @ p["wo"]
+    return _merge_heads(out, x) @ p["wo"]
 
 
 def cross_kv(cfg, p: dict, enc_out: torch.Tensor):

@@ -1,9 +1,10 @@
 """Basic layers: norms, MLPs, initializers.
 
 The port of ``repro.models.layers``.  Params are plain dicts of tensors;
-the JAX package's parallel tree of logical axes has no reader in the port
-until its sharding rules do.  Norms and activations compute in float32
-and cast back to the input's dtype, as the JAX package's do.
+the JAX package's parallel tree of logical axes comes from the ``*_axes``
+functions (``models.transformer.logical_axes`` assembles them).  Norms and
+activations compute in float32 and cast back to the input's dtype, as the
+JAX package's do.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.dist import sharding
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -47,6 +49,13 @@ def norm_init(cfg, d: int, device) -> dict:
     return {"scale": torch.zeros(d, dtype=torch.float32, device=device)}
 
 
+def norm_axes(cfg) -> dict:
+    """The logical axes of :func:`norm_init`'s leaves."""
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
 def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
@@ -65,7 +74,22 @@ def mlp_init(key: torch.Tensor, cfg, d: int, f: int, dtype: torch.dtype, device)
             "wo": dense_init(ks[2], (f, d), f, dtype, device)}
 
 
+def mlp_axes(cfg) -> dict:
+    """The logical axes of :func:`mlp_init`'s leaves."""
+    la = {"wi": ("embed_fsdp", "ff"), "wo": ("ff", "embed_fsdp")}
+    if cfg.act in ("silu", "gelu"):
+        la["wg"] = ("embed_fsdp", "ff")
+    return la
+
+
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP on x.  Split over the model axis (``wi``/``wg`` by columns,
+    ``wo`` by rows: fewer than ``d_ff`` columns here), each rank computes
+    its block of the hidden units and the outputs are summed over the
+    model group.  The experts' batched weights (3-D) are never split."""
+    split = p["wi"].dim() == 2 and p["wi"].shape[-1] != cfg.d_ff
+    if split:
+        x = sharding.copy_to_model(x)
     h = x @ p["wi"]
     if cfg.act == "silu":
         h = F.silu(h) * (x @ p["wg"])
@@ -73,4 +97,5 @@ def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh") * (x @ p["wg"])
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"]
+    y = h @ p["wo"]
+    return sharding.reduce_from_model(y) if split else y

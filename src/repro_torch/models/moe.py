@@ -52,6 +52,13 @@ def moe_init(key: torch.Tensor, cfg, d: int, device) -> dict:
             "wo": dense_init(ks[3], (e, f, d), f, dtype, device)}
 
 
+def moe_axes() -> dict:
+    """The logical axes of :func:`moe_init`'s leaves (JAX's ``moe_init``'s
+    second result)."""
+    return {"router": ("embed", "expert"), "wi": ("expert", "embed_fsdp", "ff"),
+            "wg": ("expert", "embed_fsdp", "ff"), "wo": ("expert", "ff", "embed_fsdp")}
+
+
 def _route(cfg, p: dict, xf: torch.Tensor):
     """xf: (T, D) -> (gates (T, k), expert ids (T, k), router probs (T, E)).
 

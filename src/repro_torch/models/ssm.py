@@ -45,6 +45,16 @@ def ssm_dims(cfg) -> tuple[int, int]:
     return d_inner, d_inner // s.head_dim
 
 
+def ssm_axes() -> dict:
+    """The logical axes of :func:`ssm_init`'s leaves (JAX's ``ssm_init``'s
+    second result)."""
+    return {"wz": ("embed_fsdp", "ff"), "wx": ("embed_fsdp", "ff"),
+            "wB": ("embed_fsdp", None), "wC": ("embed_fsdp", None), "wdt": ("embed", None),
+            "conv_x": (None, "ff"), "conv_B": (None, None), "conv_C": (None, None),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,), "norm": ("ff",),
+            "wo": ("ff", "embed_fsdp")}
+
+
 def ssm_init(key: torch.Tensor, cfg, d: int, device) -> dict:
     """JAX's ``split(key, 10)`` draws, key for key: ``ks[7]`` for ``dt``,
     ``ks[6]``/``ks[8]`` for ``conv_B``/``conv_C``, ``ks[9]`` for ``wo``."""

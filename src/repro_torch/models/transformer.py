@@ -32,8 +32,15 @@ loss summed over units.  Its gradients are ``torch.autograd``'s.  The
 decomposed entries (:func:`outer_params`, :func:`embed_fn`,
 :func:`unit_fn`, :func:`sublayer_fn`, :func:`head_fn`) are the pieces the
 layer-streamed train step runs one unit at a time.  Serving computes the
-aux loss too and drops it.  The logical-axis trees come with the port's
-sharding rules.
+aux loss too and drops it.
+
+:func:`logical_axes` is the JAX package's second result of ``init_lm``,
+the tree ``dist.sharding`` maps onto a mesh.  On a model axis (inside
+``dist.sharding.axis_rules``) a rank holds its slices and the layers read
+the split from their shapes: attention over its own heads, the MLP over
+its block of ``d_ff``, the embedding and the head over its block of the
+vocab (a masked lookup summed over the model group; a distributed
+log-softmax in :func:`chunked_xent`; logits gathered whole for serving).
 """
 from __future__ import annotations
 
@@ -46,13 +53,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
+from repro_torch.dist import sharding
 
 from .attention import (KVCache, attention_decode, attention_forward, attention_prefill,
-                        attn_init, cross_attention_forward, cross_kv)
-from .layers import apply_norm, dense_init, dtype_of, mlp_apply, mlp_init, norm_init
-from .moe import dense_moe_apply, moe_apply, moe_init
+                        attn_axes, attn_init, cross_attention_forward, cross_kv)
+from .layers import (apply_norm, dense_init, dtype_of, mlp_apply, mlp_axes, mlp_init, norm_axes,
+                     norm_init)
+from .moe import dense_moe_apply, moe_apply, moe_axes, moe_init
 from .rope import sincos_embedding, sincos_row
-from .ssm import SSMState, init_ssm_state, ssm_decode, ssm_forward, ssm_init
+from .ssm import SSMState, init_ssm_state, ssm_axes, ssm_decode, ssm_forward, ssm_init
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -173,6 +182,45 @@ def init_lm(key: torch.Tensor, cfg, device="cuda") -> dict:
     return p
 
 
+def _sublayer_axes(cfg, desc: SubDesc) -> dict:
+    la = {"ln1": norm_axes(cfg), "mixer": attn_axes() if desc.mixer == "attn" else ssm_axes()}
+    if desc.cross:
+        la["lnx"] = norm_axes(cfg)
+        la["cross"] = attn_axes()
+    if desc.ffn != "none":
+        la["ln2"] = norm_axes(cfg)
+    if desc.ffn == "moe":
+        la["ffn"] = moe_axes()
+    elif desc.ffn == "mlp":
+        la["ffn"] = mlp_axes(cfg)
+    return la
+
+
+def _stack_axes(tree: dict) -> dict:
+    """A unit's axes with the stacking axis ``"layers"`` in front."""
+    return {k: _stack_axes(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in tree.items()}
+
+
+def logical_axes(cfg) -> dict:
+    """The logical-axes tree of :func:`init_lm`'s params: the second result
+    of the JAX package's ``init_lm``, for every family (``dist.sharding``
+    maps it onto a mesh)."""
+    descs, _ = _decoder_descs(cfg)
+    unit = (_sublayer_axes(cfg, descs[0]) if len(descs) == 1 else
+            {f"sub{j}": _sublayer_axes(cfg, d) for j, d in enumerate(descs)})
+    la: dict = {"embed": ("vocab", "embed_fsdp"), "blocks": _stack_axes(unit),
+                "final_norm": norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        la["lm_head"] = ("embed_fsdp", "vocab")
+    if cfg.vlm_patches:
+        la["projector"] = (None, "embed_fsdp")
+    if cfg.enc_dec:
+        la["encoder"] = {"blocks": _stack_axes(_sublayer_axes(cfg, SubDesc("attn", "mlp"))),
+                         "final_norm": norm_axes(cfg)}
+    return la
+
+
 def _tensor_from_numpy(a) -> torch.Tensor:
     a = np.array(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch reads its bits
@@ -290,8 +338,24 @@ def _unit_fwd_with_cross(cfg, descs: list, p_u: dict, x: torch.Tensor, positions
 # ---------------------------------------------------------------------------
 
 
+def _lookup(cfg, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding.  A table split over the model axis
+    by vocab rows: each rank looks up the tokens of its block (zeros for
+    the others) and the rows are summed over the model group, the one
+    nonzero row exact."""
+    vr = sharding.vocab_range(table.shape[0], cfg.vocab)
+    if vr is None:
+        return table[tokens]
+    start, rows = vr
+    local = tokens - start
+    inside = (local >= 0) & (local < rows)
+    x = table[torch.where(inside, local, 0)]
+    x = torch.where(inside[..., None], x, x.new_zeros(()))
+    return sharding.reduce_from_model(x)
+
+
 def _embed_tokens(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = _lookup(cfg, params["embed"], tokens)
     if cfg.rope == "sincos":
         pos = sincos_embedding(tokens.shape[1], cfg.d_model, x.device)
         x = x + pos[None].to(x.dtype)
@@ -299,7 +363,7 @@ def _embed_tokens(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_decode_token(cfg, params: dict, token: torch.Tensor, position: int) -> torch.Tensor:
-    x = params["embed"][token]
+    x = _lookup(cfg, params["embed"], token)
     if cfg.rope == "sincos":  # one sincos row at the token's position
         x = x + sincos_row(position, cfg.d_model, x.device)[None, None].to(x.dtype)
     return x.to(dtype_of(cfg.compute_dtype))
@@ -309,6 +373,16 @@ def lm_head_weights(cfg, params: dict) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def _logits(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Float32 logits of the hidden rows ``x``; a vocab-split head's blocks
+    gathered over the model group in rank order, whole."""
+    w = lm_head_weights(cfg, params)
+    logits = (x @ w.to(x.dtype)).float()
+    if sharding.vocab_range(w.shape[-1], cfg.vocab) is not None:
+        logits = sharding.gather_over_model(logits, -1)
+    return logits
 
 
 def _inject_vision(cfg, params: dict, x: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
@@ -409,8 +483,7 @@ def prefill(cfg, params: dict, batch: Batch, capacity=None):
     """Returns (last-token logits (B, V) float32, caches).  ``capacity``
     reserves cache room for subsequent decode steps."""
     hidden, caches, _ = backbone(cfg, params, batch, "prefill", capacity=capacity)
-    last = hidden[:, -1]
-    return (last @ lm_head_weights(cfg, params).to(last.dtype)).float(), caches
+    return _logits(cfg, params, hidden[:, -1]), caches
 
 
 # ---------------------------------------------------------------------------
@@ -424,18 +497,37 @@ def chunked_xent(cfg, params: dict, hidden: torch.Tensor, labels: torch.Tensor,
     position), in sequence chunks of the largest divisor of S up to
     ``chunk``: one (B, chunk, V) float32 logits tile at a time, never (B,
     S, V).  The sums and the count run in float32 chunk after chunk, as
-    JAX's scan carries them."""
+    JAX's scan carries them.
+
+    A head split over the model axis by vocab columns gives each rank a
+    (B, chunk, V / M) tile: the log-softmax is distributed, its max over
+    the model group (no gradient), then the sum of exponentials beside
+    the target's logit (held by the rank whose block has it, zero
+    elsewhere) in one model-group sum, all in float32."""
     b, s, d = hidden.shape
     c = min(chunk, s)
     while s % c:
         c -= 1
     w = lm_head_weights(cfg, params).to(dtype_of(cfg.compute_dtype))
+    vr = sharding.vocab_range(w.shape[-1], cfg.vocab)
+    if vr is not None:
+        hidden = sharding.copy_to_model(hidden)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(s // c):
         hc, lc = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         logits = (hc @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, torch.clamp_min(lc, 0)[..., None])[..., 0]
+        if vr is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, torch.clamp_min(lc, 0)[..., None])[..., 0]
+        else:
+            start, rows = vr
+            m = sharding.max_over_model(torch.amax(logits, dim=-1))
+            sum_exp = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+            local = lc - start
+            inside = (local >= 0) & (local < rows)
+            ll = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+            both = sharding.reduce_from_model(torch.stack([sum_exp, torch.where(inside, ll, 0.0)]))
+            lse, ll = m + torch.log(both[0]), both[1]
         mask = (lc >= 0).float()
         tot = tot + torch.sum((lse - ll) * mask)
         cnt = cnt + torch.sum(mask)
@@ -519,8 +611,7 @@ def decode_step(cfg, params: dict, token: torch.Tensor, caches, position: int):
         else:
             x, new_u, _ = _unit_fwd(cfg, descs, p_u, x, None, "decode", cache_u, position)
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = (x[:, 0] @ lm_head_weights(cfg, params).to(x.dtype)).float()
-    return logits, _with_lengths(caches, new_u)
+    return _logits(cfg, params, x[:, 0]), _with_lengths(caches, new_u)
 
 
 # ---------------------------------------------------------------------------

@@ -1172,3 +1172,76 @@ def test_dry_run_allocates_nothing_and_kernels_pass_is_clean(cuda):
     findings, table = kernel_resources.run_pass()
     assert findings == [], [str(f) for f in findings]
     assert all(row["entries"] for row in kernel_resources.per_kernel(table).values())
+
+
+# -- the model axis: 2 gloo ranks on cuda:0 ---------------------------------
+
+
+def _tp_gpu_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank of a (data, model) = (1, 2) mesh: the reduced llama's train
+    step (faithful tnqsgd, 3 bits, EF) twice from the same state, 2 steps
+    each; writes both runs' losses, gnorms, params and EF rows and the
+    launches of the first."""
+    import os
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist import compat, sharding
+    from repro_torch.dist.train_step import TrainStepConfig, init_ef_state, make_train_step
+    from repro_torch.models.smallnet import tree_leaves
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizers import momentum_sgd
+    from repro_torch.train import _float32_and_deterministic
+
+    torch.set_num_threads(1)
+    _float32_and_deterministic()
+    torch.distributed.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        mesh = compat.Mesh((1, 2), ("data", "model"))
+        cfg = reduced(get_config("llama3.2-1b"))
+        params = sharding.shard_tree(init_lm(prng.key(0), cfg, device=dev),
+                                     sharding.lm_pspecs(cfg, mesh), mesh)
+        ts = TrainStepConfig(sync="faithful", error_feedback=True,
+                             compressor=CompressorConfig(method="tnqsgd", bits=3))
+        opt = momentum_sgd(lr=0.05)
+        batches = [lm_batch(cfg, i, 2, 64, dev) for i in range(2)]
+        fn = make_train_step(cfg, mesh, opt, ts, batches[0], params_like=params)
+        runs = []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            p, o, ef, hist = params, opt.init(params), init_ef_state(params, ts), []
+            for i, b in enumerate(batches):
+                p, o, ef, m = fn(p, o, ef, b, i)
+                hist.append((float(m["loss"][0]), float(m["gnorm"][0])))
+            runs.append({"hist": hist, "params": [t.cpu() for t in tree_leaves(p)],
+                         "ef": [e.cpu() for e in ef],
+                         "counts": {k: v for k, v in kernels.launch_counts().items() if v}})
+        torch.save(runs, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_model_axis_step_on_two_ranks_repeats_bitwise(cuda, tmp_path):
+    """The reduced llama on a (1, 2) data x model mesh, 2 gloo ranks on
+    cuda:0: each rank's two runs are bitwise alike (losses, gnorms, its
+    params and EF rows), both model ranks report the same loss, the loss
+    is finite, and each rank launches K1, K2 and K4 once a bucket a step."""
+    torch.multiprocessing.start_processes(_tp_gpu_rank, args=(2, f"file://{tmp_path}/rdzv",
+                                                              str(tmp_path)),
+                                          nprocs=2, join=True, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for runs in ranks:
+        first, second = runs
+        assert first["hist"] == second["hist"]
+        assert all(torch.equal(a, b) for a, b in zip(first["params"], second["params"]))
+        assert all(torch.equal(a, b) for a, b in zip(first["ef"], second["ef"]))
+        assert all(math.isfinite(x) for h in first["hist"] for x in h)
+        n_buckets = len(first["ef"])
+        assert first["counts"] == {
+            "encode_fused.ef_correct_stats_2d": 2 * n_buckets,
+            "encode_fused.codebook_encode_pack_resid_2d": 2 * n_buckets,
+            "decode.codebook_decode_reduce_3d": 2 * n_buckets}
+    assert [h[0] for h in ranks[0][0]["hist"]] == [h[0] for h in ranks[1][0]["hist"]]

@@ -79,8 +79,11 @@ def test_mesh_axes_each_spec_form(spec, names, dims):
 
 
 def test_mesh_rejects_model_axis_and_bad_specs():
-    with pytest.raises(ValueError, match=r"Queue 1, item 4\.2"):
-        mesh.data_parallel_axes("4x2")
+    # a model axis above 1 trains the dense family; MoE waits (fact F17)
+    assert mesh.data_parallel_axes("4x2") == (("data",), (4,))
+    mesh.check_model_axis(configs.get_config("llama3.2-1b"), 2)
+    with pytest.raises(ValueError, match=r"F17.*Queue 1, item 4\.2"):
+        mesh.check_model_axis(configs.get_config("phi3.5-moe-42b-a6.6b"), 2)
     for bad in ("2x2x2x2", "x4", "0", "four"):
         with pytest.raises(ValueError, match="bad mesh spec"):
             mesh.mesh_axes(bad)
@@ -286,8 +289,8 @@ def test_dryrun_sync_terms_and_the_cli(tmp_path):
     rec = json.loads(out.read_text())
     assert rec["shape"] == "train_2x64" and rec["batch_per_rank"] == 1 and rec["chips"] == 2
     assert rec["roofline"]["collective_bytes"] > 0
-    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k", "--mesh", "2x2",
-                        "--reduced"]) == 1           # a model axis of 2: item 4.2
+    assert dryrun.main(["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "train_4k", "--mesh",
+                        "2x2", "--reduced"]) == 1    # MoE on a model axis: item 4.2 (F17)
 
 
 def test_report_tables_are_jax(records, tmp_path, capsys):

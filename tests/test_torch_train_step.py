@@ -412,7 +412,7 @@ def test_launcher_on_cpu(tmp_path, capfd):
               for i in range(B)]
     want = sum(_jax_loss(ARCH, params, h) for h in halves) / B
     assert abs(got - want) <= 6e-5, (got, want)
-    for bad, what in ((["--mesh", "1x2"], "model axis"),
+    for bad, what in ((["--mesh", "1x2", "--arch", "phi3.5-moe-42b-a6.6b"], "model axis"),
                       (["--obs-dir", str(tmp_path), "--bucket-mb", "0"], "bucketed codec")):
         with pytest.raises(SystemExit):
             launcher.main(argv + bad)
